@@ -1,0 +1,142 @@
+"""K3: causal / sliding-window GQA flash attention (forward), for Hopper.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
+and its wrapper ``repro/kernels/ops.py::flash_attention``; the plain version
+below replaces the oracle ``repro/kernels/ref.py::flash_attention_ref``.
+
+The CUDA kernel is ``csrc/flash_attention.cu`` (built by ``kernels.build``
+with nvcc for ``sm_90a`` and called through ``ctypes``).  It reads q, k, v in
+the model's (B, S, H, d) layout, so there is no transpose and no padding
+copy: the ragged sequence edge is masked by the real length.
+
+What bounds it on an H100: at the serving path's shapes (B <= 4, S = 64,
+H = 32, d = 128) the work is a few MFLOP over about 2 MB, so the least time
+is the bytes (~0.6 us at 3.35 TB/s) and the launch itself dominates; the grid
+is S/64 * B*H blocks (32 at B=1) on 132 SMs.  At long prompts the work is
+bound by operations, and this first version computes on the CUDA cores in
+fp32 (no tensor cores, TMA or pipelining), far below the bf16 roofline.  Its
+design fixes the tiles at 64 x 64 so Q, K, V and the score tile fit one
+block's shared memory (113 KB at d = 128), and walks only the KV tiles that
+the causal frontier and the window let a q tile reach.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+TILE_Q = TILE_KV = 64                      # fixed in csrc/flash_attention.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0):
+    """Plain PyTorch version: q (B, Sq, H, d); k, v (B, Skv, Hkv, d) -> (B, Sq, H, d).
+
+    Follows ``ref.flash_attention_ref``: logits formed in the input dtype and
+    then cast to fp32, fp32 softmax, P @ V in fp32, cast back to q's dtype.
+    """
+    b, sq, h, d = q.shape
+    _, skv, hkv, _ = k.shape
+    n_rep = h // hkv
+    if n_rep > 1:
+        k = torch.repeat_interleave(k, n_rep, dim=2)
+        v = torch.repeat_interleave(v, n_rep, dim=2)
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * d ** -0.5
+    iq = torch.arange(sq, device=q.device)[:, None] + (skv - sq)  # right-aligned
+    ik = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ik <= iq
+    if window:
+        mask &= (iq - ik) < window
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_smem_limit.argtypes = [ctypes.c_int]
+        lib.flash_attention_smem_limit.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory one block of the CUDA kernel needs at head dim d."""
+    return _lib().flash_attention_smem_bytes(d)
+
+
+def _check(q, k, v, window):
+    if window < 0:
+        raise ValueError(f"window must be >= 0 (0 = no window), got {window}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention wants q (B,S,H,d) and k, v (B,S,Hkv,d)")
+    b, s, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if h % k.shape[2]:
+        raise ValueError(f"H={h} is not a multiple of Hkv={k.shape[2]}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: want one of "
+                         f"{list(_DTYPE_CODES)} for all three")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention wants contiguous q, k, v")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    if b * h > 65535:
+        raise ValueError(f"B*H={b * h} exceeds the grid's 65535 rows")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256):
+    """q: (B, S, H, d); k, v: (B, S, Hkv, d) -> (B, S, H, d).
+
+    A CPU tensor goes through ``flash_attention_plain``.  A CUDA tensor
+    launches the CUDA kernel or raises.  ``block_q``/``block_kv`` are the
+    reference wrapper's tile knobs, accepted for parity; the CUDA kernel uses
+    its own fixed 64 x 64 tiles (``TILE_Q``/``TILE_KV``), which fit a Hopper
+    block's shared memory.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, window)
+    b, s, h, d = q.shape
+    lib = _lib()
+    need = lib.flash_attention_smem_bytes(d)
+    limit = lib.flash_attention_smem_limit(q.device.index or 0)
+    if need <= 0 or need > limit:
+        raise RuntimeError(f"flash_attention needs {need} B of shared memory per "
+                           f"block at d={d}; the device allows {limit} B")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
+            int(window), d ** -0.5, stream)
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err} ({msg})")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0   # launches of the CUDA kernel in this process

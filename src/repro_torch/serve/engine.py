@@ -1,0 +1,51 @@
+"""Serving engine: batched prefill + greedy decode (port of ``repro/serve/engine.py``).
+
+Greedy sampling matches the paper's experiments ("we used greedy sampling for
+token generation so that all inferences generate the same output"), so the
+generation workloads explored by JExplore are deterministic.  The JAX
+engine's on-device ``lax.scan`` decode loop is a Python loop here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: Any                  # (B, n_gen) np/int32
+    n_prompt: int
+    n_generated: int
+
+
+def pad_caches(caches, cur_len: int, max_len: int):
+    """Grow prefill caches (seq axis cur_len) to max_len slots, zero-filled."""
+    return [{name: F.pad(c, (0, 0, 0, 0, 0, max_len - cur_len)) for name, c in layer.items()}
+            for layer in caches]
+
+
+class Engine:
+    def __init__(self, model, max_len: int):
+        self.model = model
+        self.max_len = max_len
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict[str, Any], n_tokens: int) -> GenerationResult:
+        """Greedy-generate n_tokens continuations for the whole batch."""
+        prompt_len = batch["tokens"].shape[1]
+        logits, caches = self.model.prefill(batch)
+        caches = pad_caches(caches, prompt_len, self.max_len)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        toks = []
+        for pos in range(prompt_len, prompt_len + n_tokens - 1):
+            toks.append(tok[:, 0])
+            logits, caches = self.model.decode_step(tok, caches, pos)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        toks.append(tok[:, 0])
+        out = torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()
+        return GenerationResult(tokens=np.asarray(out), n_prompt=prompt_len,
+                                n_generated=n_tokens)

@@ -28,3 +28,8 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 600) -> str:
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc; skips where PyTorch sees no CUDA device")
