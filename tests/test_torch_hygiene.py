@@ -26,6 +26,18 @@ res = serve.main(["--arch", "llama2-7b", "--reduced", "--batch", "2", "--prompt-
                   "--gen", "4", "--device", "cpu", "--attn-impl", "flash"])
 assert res.tokens.shape == (2, 4), res.tokens.shape
 assert fa.flash_attention.launches == 0
+from repro_torch.core import BayesOpt, tpu_pod_space
+from repro_torch.core.search import gp_cuda, gp_torch
+from repro_torch.kernels import gp_ops
+space = tpu_pod_space(n_chips=256)
+for mode in ("torch", "cuda"):
+    algo = BayesOpt(space, seed=0, n_init=4, pool_size=32, strategy="ehvi", gp_mode=mode,
+                    device="cpu")
+    for _ in range(8):
+        c = algo.ask(1)[0]
+        algo.tell(c, space.encode(c)[:2] + 0.5)
+assert algo._gp.stats()["cuda_appends"] > 0
+assert gp_ops.gp_w.launches == gp_ops.gp_g.launches == gp_ops.gp_ehvi.launches == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 assert not bad, bad
@@ -57,6 +69,22 @@ def test_serve_cli_defaults_to_the_card(monkeypatch):
     assert serve.parse_args([]).attn_impl == "flash"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+
+
+def test_gp_tiers_default_to_the_card(monkeypatch):
+    from repro_torch.core import BayesOpt, PAL, tpu_pod_space
+    from repro_torch.core.search.gp_cuda import CudaIncrementalGP
+    from repro_torch.core.search.gp_torch import TorchIncrementalGP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    space = tpu_pod_space(n_chips=256)
+    for make in (TorchIncrementalGP, CudaIncrementalGP,
+                 lambda: BayesOpt(space, gp_mode="cuda"),
+                 lambda: BayesOpt(space, gp_mode="torch", strategy="ehvi"),
+                 lambda: PAL(space, gp_mode="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert BayesOpt(space, gp_mode="incremental")._gp.__class__.__name__ == "IncrementalGP"
 
 
 def test_cpu_tensor_takes_plain_version():
