@@ -7,14 +7,20 @@ Phases, each of which fails loudly (the script exits non-zero on any
 failed check and then prints no result):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: every kernel of both paths (K3; K1a, K1b and K2 in one source)
-   compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source started
-   together, with the ``-Xptxas -v`` resource report;
+2. build: every kernel of every path (K3; K1a, K1b and K2 in one source;
+   K4; K5) compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source
+   started together, with the ``-Xptxas -v`` resource report;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
    on the same inputs at one bf16 rounding (``BF16_VS_FP32``), at every
-   shape the main path gives a kernel (``main_path_cases``) and beyond;
+   shape the llama2-7b and deepseek-moe-16b paths give it
+   (``main_path_cases``) and beyond;
+   K4 (``ssd_parity``) the same way, with y and the fp32 final state at
+   ``SSD_TOL`` in fp32, on ``tests/test_kernels.py``'s grid, every shape of
+   the Mamba path and a jamba-like head; K5 (``topk_parity``) with ids equal
+   and probabilities within ``TOPK_P_TOL``, ties and ragged T included;
+   K4 and K5 launched twice on the same inputs must repeat bitwise;
 4. main path (serving): llama2-7b at full width in bf16 with random weights
    from a seeded ``torch.Generator``, served through ``Engine.generate`` and
    a ``SlotServer``, with ``attn_impl="flash"``; K3's launch count is reset
@@ -25,18 +31,29 @@ failed check and then prints no result):
    flash against the plain path on a 2-layer full-width model (within 5 %
    of the logit scale), and on a small fp32 model flash against plain at
    5e-5 and SlotServer against Engine token for token;
-5. gp_parity: K1a, K1b and K2 against their plain versions in float64 on
+5. main_ssm: mamba2-780m at full width and depth (48 layers) in bf16 with
+   ``ssd_impl="cuda"``, the same Engine traffic and a SlotServer whose
+   prompts (``SSM_SLOT_PROMPTS``) include one of 600 tokens (3 chunks); K4's
+   launches must equal 48 times the prefill calls; the drift gate against an
+   fp32 copy on the plain chunked path at (4, 64) and (1, 600);
+6. main_moe: deepseek-moe-16b at full width and depth (28 layers) in bf16
+   with flash attention and llama2-7b's traffic; K5's launches must equal 27
+   MoE layers times forward calls and K3's 28 times prefill calls; the same
+   traffic is served again, untimed, with the router logits K5 receives
+   recorded, and they are replayed through its plain version; the drift
+   gate (root-mean-square) on a 4-layer full-width copy;
+7. gp_parity: K1a, K1b and K2 against their plain versions in float64 on
    real GP states (cap 64 and 8192, n on a tile edge, just past one and
    6250, B = 1, 7 -> 8 and 512, isotropic and ARD; P = 512 with staircases
    of S = 2 and S = 129): w, g and the new rows of L and L⁻¹ (``gp_append``
    against the torch tier's dense append) within 1e-10 · max(1, max|ref|),
    EHVI within 1e-8; each kernel launched twice on the same inputs must
    give bitwise-equal outputs;
-6. search_small: BayesOpt (ehvi, parego) and PAL with ``gp_mode="cuda"``
+8. search_small: BayesOpt (ehvi, parego) and PAL with ``gp_mode="cuda"``
    make the same picks as ``gp_mode="incremental"`` (numpy, on the host) on
    ``tpu_pod_space(n_chips=256)`` fed 1,000 observations and 30 ask/tell
    cycles;
-7. search_main (the GP path): BayesOpt(ehvi, pool 512, inducing threshold
+9. search_main (the GP path): BayesOpt(ehvi, pool 512, inducing threshold
    5000) fed synthetic observations in 512-row blocks to 10⁴ and 10⁵, the
    size of the reference's ``bign_ask_curve``, for ``gp_mode="cuda"`` and
    then ``"torch"`` on the identical feed; the GP kernels' launch counts are
@@ -45,12 +62,12 @@ failed check and then prints no result):
    and the posterior means of each checkpoint's last timed pool, agree
    between the tiers within 1e-8; tell+ask ms, active set, capacity,
    device memory and where a cycle's time goes are printed;
-8. times: CUDA-event times of each kernel, its plain version and the
+10. times: CUDA-event times of each kernel, its plain version and the
    library call that computes the same function (where one does), as a loop
    of launches, as one launch between synchronisations and as the
    profiler's device time, beside the least time the card could take (bytes
    over 3.35 TB/s or operations over the dtype's peak, whichever is larger),
-   and the serving times.
+   and the serving times of all three paths.
 
 Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -87,6 +104,14 @@ SLOT_NEW = (8, 12, 6, 10)
 # bf16 flash prefill logits over 32 layers may sit at most this many times
 # as far from the fp32 reference as the bf16 plain grouped path does.
 DRIFT_RATIO = 1.25
+# The Mamba-2 path (K4) and the MoE path (K5, K3) at full width and depth.
+SSM_ARCH, MOE_ARCH = "mamba2-780m", "deepseek-moe-16b"
+# The Mamba SlotServer's prompts: the 600-token one carries the state across
+# three 256-row chunks of K4 (the last one ragged); 64 fills one chunk.
+SSM_SLOT_PROMPTS = (64, 17, 600, 33)
+MOE_DRIFT_LAYERS = 4          # the dense layer and 3 MoE layers at full width
+SSD_TOL = 1e-4                # tests/test_kernels.py's ssd tolerance (fp32; the state)
+TOPK_P_TOL = 1e-6             # tests/test_kernels.py's top-k tolerance
 
 
 def emit(tag, **fields):
@@ -162,15 +187,21 @@ def qkv(b, s, h, hkv, d, dtype, seed):
 
 
 def main_path_cases():
-    """(name, B, S, H, Hkv, d, window, dtype) of every K3 call the main path
-    makes: the Engine prefill and each SlotServer prefill, at llama2-7b's
-    heads in bf16."""
+    """(name, B, S, H, Hkv, d, window, dtype) of every K3 call the main paths
+    make: the Engine prefill and each SlotServer prefill, in bf16, at
+    llama2-7b's heads and (named ``moe_*``) at deepseek-moe-16b's, whose
+    path serves the same traffic."""
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(ARCH)
-    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    return ([("engine_prefill", ENGINE_BATCH, ENGINE_PROMPT, h, hkv, d, 0, "bfloat16")]
-            + [(f"slot_prefill_s{n}", 1, n, h, hkv, d, 0, "bfloat16") for n in SLOT_PROMPTS])
+    cases = []
+    for prefix, arch in (("", ARCH), ("moe_", MOE_ARCH)):
+        cfg = get_arch(arch)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        cases += [(f"{prefix}engine_prefill", ENGINE_BATCH, ENGINE_PROMPT, h, hkv, d, 0,
+                   "bfloat16")]
+        cases += [(f"{prefix}slot_prefill_s{n}", 1, n, h, hkv, d, 0, "bfloat16")
+                  for n in SLOT_PROMPTS]
+    return cases
 
 
 # Beyond the main path: (name, B, S, H, Hkv, d, window, dtype)
@@ -261,20 +292,22 @@ def logits_gap(a, b):
 
     a, b = a.float(), b.float()
     return {"max_abs_diff": (a - b).abs().max().item(),
+            "rms_diff": (a - b).pow(2).mean().sqrt().item(),
             "max_abs_logit": b.abs().max().item(),
             "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
             "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all())}
 
 
 def phase_main_path(n_layers, seed):
-    import numpy as np
+    """llama2-7b at full width in bf16 with flash attention, served through
+    ``serve_path``; K3's launches must equal the attention layers times the
+    prefill calls.  Drift gate: the flash path and the plain grouped path,
+    each against an fp32 copy of the weights on the plain path."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import BuildFlags, Model
-    from repro_torch.serve import Engine, SlotServer
-    from repro_torch.serve.engine import pad_caches
 
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=n_layers)
     flags = BuildFlags(dtype="bfloat16", attn_impl="flash")
@@ -285,51 +318,26 @@ def phase_main_path(n_layers, seed):
     emit("init", arch=cfg.name, n_layers=n_layers, d_model=cfg.d_model,
          params=n_params, weight_bytes=n_params * 2,
          seconds=time.perf_counter() - t0)
-
-    rng = np.random.default_rng(seed)
-    batch, prompt, n_gen = ENGINE_BATCH, ENGINE_PROMPT, ENGINE_NEW
-    tokens = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
-    slot_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SLOT_PROMPTS]
     slot_new = list(SLOT_NEW)
-    engine = Engine(model, max_len=prompt + n_gen + 1)
     n_attn = sum(1 for s in cfg.layer_specs() if s.mixer in ("attn", "attn_local"))
 
     # ---- the main path, with every kernel's launch count set to 0 just before
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    res = engine.generate({"tokens": tokens}, n_gen)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    srv = SlotServer(model, n_slots=2, max_len=128)
-    for i, (p, n) in enumerate(zip(slot_prompts, slot_new)):
-        srv.submit(i, p, n)
-    t0 = time.perf_counter()
-    finished = srv.run()
-    torch.cuda.synchronize()
-    slot_s = time.perf_counter() - t0
+    tokens, _, gen_s, slot_s, calls = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
     launches = {"flash_attention": fa.flash_attention.launches}
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
 
-    want = n_attn * (1 + len(slot_prompts))
-    emit("main_path", engine_seconds=gen_s, slot_server_seconds=slot_s,
-         launches=launches, expected_flash_launches=want,
-         max_memory_allocated=peak)
+    want = n_attn * calls["prefill"]
+    emit("main_path", engine_seconds=gen_s, slot_server_seconds=slot_s, calls=calls,
+         launches=launches, expected_flash_launches=want, max_memory_allocated=peak)
     if launches["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
                              f"times on the main path, expected {want}")
-    if res.tokens.shape != (batch, n_gen) or not (
-            (res.tokens >= 0).all() and (res.tokens < cfg.vocab_size).all()):
-        raise AssertionError(f"Engine tokens wrong: shape {res.tokens.shape}")
-    if sorted(r.rid for r in finished) != list(range(len(slot_prompts))) or any(
-            len(r.out) != slot_new[r.rid] for r in finished):
-        raise AssertionError("SlotServer did not finish every request at its length")
 
-    # ---- outputs: the bf16 flash path against the bf16 plain grouped path and
-    # against an fp32 copy of the same weights on the plain path.  Over 32
-    # bf16 layers both bf16 paths drift from fp32; the flash path must not
-    # drift further than DRIFT_RATIO times as far as the plain one.
+    # ---- outputs: over 32 bf16 layers both bf16 paths drift from fp32; the
+    # flash path must not drift further than DRIFT_RATIO times as far
     xla = same_weights(model, dataclasses.replace(flags, attn_impl="xla"))
     with torch.inference_mode():
         lf, _ = model.prefill({"tokens": tokens})
@@ -338,36 +346,13 @@ def phase_main_path(n_layers, seed):
                            cast=torch.float32)
         lr, _ = ref.prefill({"tokens": tokens})
         del ref
-    gaps = {"flash_vs_xla": logits_gap(lf, lx), "flash_vs_fp32": logits_gap(lf, lr),
-            "xla_vs_fp32": logits_gap(lx, lr)}
-    emit("outputs", n_layers=n_layers, **gaps)
-    if not (gaps["flash_vs_xla"]["finite"] and gaps["xla_vs_fp32"]["finite"]) or (
-            gaps["flash_vs_fp32"]["max_abs_diff"]
-            > DRIFT_RATIO * gaps["xla_vs_fp32"]["max_abs_diff"]):
-        raise AssertionError(f"bf16 flash prefill is off the fp32 reference: {gaps}")
+    drift_gate(lf, lx, lr, "main_path", names=("flash", "xla"), n_layers=n_layers)
+    del xla
+    torch.cuda.empty_cache()
 
     # ---- serving times (after the counted run, so they count no launches)
-    with torch.inference_mode():
-        prefill_ms = cuda_ms(lambda: model.prefill({"tokens": tokens}), iters=5, warmup=1)
-        _, caches = model.prefill({"tokens": tokens})
-        caches = pad_caches(caches, prompt, prompt + n_gen + 1)
-        tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
-        steps = iter(range(prompt, prompt + n_gen))
-        decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
-                            iters=n_gen - 4, warmup=2)
-        prof_prefill = profile(lambda: model.prefill({"tokens": tokens}))
-        prof_decode = profile(lambda: model.decode_step(tok, caches, prompt + 1))
-    # busy share: device kernel time over the unprofiled CUDA-event time
-    emit("profile", step="prefill", batch=batch, prompt=prompt,
-         device_busy_share=prof_prefill["device_busy_ms"] / prefill_ms, **prof_prefill)
-    emit("profile", step="decode", batch=batch,
-         device_busy_share=prof_decode["device_busy_ms"] / decode_ms, **prof_decode)
-    emit("serve", batch=batch, prompt=prompt, n_gen=n_gen,
-         prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
-         generate_tokens_per_s=batch * n_gen / gen_s,
-         slot_server_tokens_per_s=sum(slot_new) / slot_s,
-         max_memory_allocated=peak)
-    del xla, model, caches
+    serve_times(model, tokens, "main_path", gen_s, slot_s, slot_new, peak)
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -488,6 +473,489 @@ def phase_times(errs, launches):
              "max_abs_err": max(errs[c[0]] for c in main_path_cases()),
              "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
              "bound_by": main["bound_by"], "library_ms": main["library_ms"]}]
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 path (K4) and the MoE path (K5, with K3)
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(b, s, h, p, n, dtype, seed):
+    """K4's inputs as the reference's kernel tests draw them: dt = softplus,
+    a_log = -dt * sigmoid, b and c at 0.4 N(0, 1); x, b, c in ``dtype``."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = F.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
+    a_log = -dt * torch.sigmoid(torch.randn((b, s, h), generator=g, device="cuda"))
+    cast = getattr(torch, dtype)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda").to(cast)
+    bb = (0.4 * torch.randn((b, s, n), generator=g, device="cuda")).to(cast)
+    cc = (0.4 * torch.randn((b, s, n), generator=g, device="cuda")).to(cast)
+    return x, a_log, bb, cc, dt
+
+
+def ssd_main_path_cases():
+    """(name, B, S, H, P, N, chunk, dtype) of every K4 call the Mamba path
+    makes: the Engine prefill and each SlotServer prefill, at mamba2-780m's
+    widths in bf16."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(SSM_ARCH)
+    h, p, n, q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    return ([("engine_prefill", ENGINE_BATCH, ENGINE_PROMPT, h, p, n, q, "bfloat16")]
+            + [(f"slot_prefill_s{s}", 1, s, h, p, n, q, "bfloat16") for s in SSM_SLOT_PROMPTS])
+
+
+# Beyond the main path: tests/test_kernels.py's grid (fp32) and a jamba-like head
+SSD_EXTRA_CASES = [
+    ("grid_s64", 2, 64, 2, 16, 16, 16, "float32"),
+    ("grid_s96", 2, 96, 4, 32, 32, 32, "float32"),
+    ("grid_s40_pad", 2, 40, 1, 16, 64, 16, "float32"),
+    ("jamba_like", 1, 300, 128, 64, 16, 256, "bfloat16"),
+    ("mamba_s600_fp32", 1, 600, 48, 64, 128, 256, "float32"),
+]
+
+
+def phase_ssd_parity():
+    """K4 against its plain version: y at TOL[dtype] (fp32 at SSD_TOL), the
+    fp32 final state at SSD_TOL, a bf16 y also against the plain version run
+    in fp32 on the same inputs at one bf16 rounding (BF16_VS_FP32), and two
+    launches on the same inputs bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as k4
+
+    errs = {}
+    for i, (name, b, s, h, p, n, chunk, dtype) in enumerate(ssd_main_path_cases()
+                                                          + SSD_EXTRA_CASES):
+        args = ssd_inputs(b, s, h, p, n, dtype, seed=200 + i)
+        y, state = k4.ssd_scan(*args, chunk=chunk)
+        y2, state2 = k4.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        q = k4.clamp_chunk(chunk, s)
+        want_y, want_state = k4.ssd_scan_plain(*args, chunk=q)
+        y_tol = TOL[dtype] if dtype == "bfloat16" else SSD_TOL
+        err_y = (y.float() - want_y.float()).abs().max().item()
+        err_s = (state - want_state).abs().max().item()
+        ok = bool(torch.allclose(y.float(), want_y.float(), atol=y_tol, rtol=y_tol)
+                  and torch.allclose(state, want_state, atol=SSD_TOL, rtol=SSD_TOL))
+        repeat = bool(torch.equal(y, y2) and torch.equal(state, state2))
+        extra = {}
+        if dtype == "bfloat16":
+            x32, a32, b32, c32, d32 = (t.float() for t in args)
+            want32, _ = k4.ssd_scan_plain(x32, a32, b32, c32, d32, chunk=q)
+            ok32 = bool(torch.allclose(y.float(), want32, **BF16_VS_FP32))
+            extra = dict(max_abs_err_vs_fp32=(y.float() - want32).abs().max().item(),
+                         tol_vs_fp32=BF16_VS_FP32, ok_vs_fp32=ok32)
+            ok = ok and ok32
+        ok = ok and repeat
+        emit("parity", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q,
+             n_chunks=-(-s // q), dtype=dtype, max_abs_err=err_y, state_max_abs_err=err_s,
+             tol=y_tol, state_tol=SSD_TOL, bitwise_repeat=repeat, ok=ok, **extra)
+        if not ok:
+            raise AssertionError(f"ssd_scan disagrees with its plain version on {name}")
+        errs[name] = max(err_y, err_s)
+    return errs
+
+
+def topk_main_path_cases():
+    """(name, T, E, k) of the K5 calls the MoE path makes: the Engine's
+    prefill (B*S tokens) and decode (B), each slot prefill (its prompt) and
+    the SlotServer's decode (its slots)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(MOE_ARCH)
+    e, k = cfg.n_experts, cfg.moe_top_k
+    return ([("engine_prefill", ENGINE_BATCH * ENGINE_PROMPT, e, k),
+             ("engine_decode", ENGINE_BATCH, e, k), ("slot_decode", 2, e, k)]
+            + [(f"slot_prefill_s{n}", n, e, k) for n in SLOT_PROMPTS])
+
+
+def phase_topk_parity():
+    """K5 against its plain version: ids equal, probabilities within
+    TOPK_P_TOL, on random logits, rows with exact ties (logits on a 0.5
+    grid) and T off any block; two launches bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import topk_gating as k5
+
+    cases = [(name, t, e, k, False) for name, t, e, k in topk_main_path_cases()]
+    cases += [("engine_prefill_ties", 256, 64, 6, True), ("t1", 1, 64, 6, False),
+              ("t37_ties", 37, 64, 6, True), ("t1000_e16", 1000, 16, 4, False),
+              ("e256_k8", 33, 256, 8, False), ("e4_k4_ties", 40, 4, 4, True)]
+    err = 0.0
+    for i, (name, t, e, k, ties) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        logits = torch.randn((t, e), generator=g, device="cuda")
+        if ties:
+            logits = torch.round(logits * 2) / 2
+        p, ids = k5.topk_gating(logits, k)
+        p2, ids2 = k5.topk_gating(logits, k)
+        torch.cuda.synchronize()
+        want_p, want_ids = k5.topk_gating_plain(logits, k)
+        e_p = (p - want_p).abs().max().item()
+        same = bool(torch.equal(ids, want_ids))
+        repeat = bool(torch.equal(p, p2) and torch.equal(ids, ids2))
+        ok = same and repeat and e_p <= TOPK_P_TOL
+        emit("parity", kernel="topk_gating", case=name, shape=[t, e, k], ties=ties,
+             max_abs_err=e_p, tol=TOPK_P_TOL, ids_equal=same, bitwise_repeat=repeat, ok=ok)
+        if not ok:
+            raise AssertionError(f"topk_gating disagrees with its plain version on {name}")
+        err = max(err, e_p)
+    return err
+
+
+def drift_gate(kernel_logits, plain_logits, ref_logits, label, metric="max_abs_diff",
+               names=("kernel", "plain"), **fields):
+    """The bf16 kernel path may sit at most DRIFT_RATIO times as far from the
+    fp32 reference as the bf16 plain path (``metric`` of the differences).
+    ``names`` label the two paths in the emitted gaps."""
+    kn, pn = names
+    gaps = {f"{kn}_vs_{pn}": logits_gap(kernel_logits, plain_logits),
+            f"{kn}_vs_fp32": logits_gap(kernel_logits, ref_logits),
+            f"{pn}_vs_fp32": logits_gap(plain_logits, ref_logits)}
+    emit("outputs", path=label, metric=metric, **fields, **gaps)
+    if not all(g["finite"] for g in gaps.values()) or (
+            gaps[f"{kn}_vs_fp32"][metric] > DRIFT_RATIO * gaps[f"{pn}_vs_fp32"][metric]):
+        raise AssertionError(f"{label}: the bf16 kernel path is off the fp32 reference: {gaps}")
+
+
+def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
+    """Engine.generate on ENGINE_BATCH x ENGINE_PROMPT, then a SlotServer with
+    2 slots over ``slot_prompts``: returns (tokens, Engine s, SlotServer s,
+    finished requests, prefill and decode calls).  The callers reset the
+    kernels' counts just before and read them just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine, SlotServer
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, ENGINE_PROMPT)).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in slot_prompts]
+    calls = {"prefill": 0, "decode": 0}
+    for name in calls:
+        inner = getattr(model, {"prefill": "prefill", "decode": "decode_step"}[name])
+
+        def counted(*args, _inner=inner, _name=name, **kwargs):
+            calls[_name] += 1
+            return _inner(*args, **kwargs)
+        setattr(model, {"prefill": "prefill", "decode": "decode_step"}[name], counted)
+    engine = Engine(model, max_len=ENGINE_PROMPT + ENGINE_NEW + 1)
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens}, ENGINE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    srv = SlotServer(model, n_slots=2, max_len=slot_max_len)
+    for i, (p, n) in enumerate(zip(prompts, slot_new)):
+        srv.submit(i, p, n)
+    t0 = time.perf_counter()
+    finished = srv.run()
+    torch.cuda.synchronize()
+    slot_s = time.perf_counter() - t0
+    del model.prefill, model.decode_step            # back to the class's methods
+    if res.tokens.shape != (ENGINE_BATCH, ENGINE_NEW) or not (
+            (res.tokens >= 0).all() and (res.tokens < cfg.vocab_size).all()):
+        raise AssertionError(f"{cfg.name}: Engine tokens wrong: shape {res.tokens.shape}")
+    if sorted(r.rid for r in finished) != list(range(len(prompts))) or any(
+            len(r.out) != slot_new[r.rid] for r in finished):
+        raise AssertionError(f"{cfg.name}: SlotServer did not finish every request")
+    return tokens, prompts, gen_s, slot_s, calls
+
+
+def serve_times(model, tokens, label, gen_s, slot_s, slot_new, peak):
+    """Prefill ms, decode ms per token (CUDA events), the profiler's busy
+    share, tokens/s and peak memory of one served path."""
+    import torch
+
+    from repro_torch.serve.engine import pad_caches
+
+    batch, prompt, n_gen = ENGINE_BATCH, ENGINE_PROMPT, ENGINE_NEW
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: model.prefill({"tokens": tokens}), iters=5, warmup=1)
+        _, caches = model.prefill({"tokens": tokens})
+        caches = pad_caches(caches, prompt, prompt + n_gen + 1)
+        tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+        steps = iter(range(prompt, prompt + n_gen))
+        decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
+                            iters=n_gen - 4, warmup=2)
+        prof_prefill = profile(lambda: model.prefill({"tokens": tokens}))
+        prof_decode = profile(lambda: model.decode_step(tok, caches, prompt + 1))
+    emit("profile", path=label, step="prefill", batch=batch, prompt=prompt,
+         device_busy_share=prof_prefill["device_busy_ms"] / prefill_ms, **prof_prefill)
+    emit("profile", path=label, step="decode", batch=batch,
+         device_busy_share=prof_decode["device_busy_ms"] / decode_ms, **prof_decode)
+    emit("serve", path=label, batch=batch, prompt=prompt, n_gen=n_gen,
+         prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+         generate_tokens_per_s=batch * n_gen / gen_s,
+         slot_server_tokens_per_s=sum(slot_new) / slot_s, max_memory_allocated=peak)
+
+
+def phase_ssm_main(seed):
+    """mamba2-780m at full width and depth (48 layers), bf16, K4 on the
+    prefills: Engine and SlotServer; K4's launches must equal 48 x prefills.
+    Drift gate: the bf16 K4 path and the bf16 plain chunked path, each
+    against an fp32 copy of the weights on the plain path, at the Engine's
+    (4, 64) and at one 600-token prompt (3 chunks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import BuildFlags, Model
+
+    cfg = get_arch(SSM_ARCH)
+    flags = BuildFlags(dtype="bfloat16", ssd_impl="cuda")
+    t0 = time.perf_counter()
+    model = Model(cfg, flags, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("init", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, params=n_params, seconds=time.perf_counter() - t0)
+    slot_new = list(SLOT_NEW)
+    n_mamba = sum(1 for s in cfg.layer_specs() if s.mixer == "mamba")
+
+    # ---- the main path, with every kernel's launch count set to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    for kern in (k4.ssd_scan, k5.topk_gating, fa.flash_attention):
+        kern.launches = 0
+    tokens, _, gen_s, slot_s, calls = serve_path(
+        model, SSM_SLOT_PROMPTS, slot_new, max(SSM_SLOT_PROMPTS) + max(slot_new) + 2, seed)
+    launches = {"ssd_scan": k4.ssd_scan.launches, "topk_gating": k5.topk_gating.launches,
+                "flash_attention": fa.flash_attention.launches}
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    want = n_mamba * calls["prefill"]
+    emit("main_ssm", arch=cfg.name, engine_seconds=gen_s, slot_server_seconds=slot_s,
+         calls=calls, launches=launches, expected_ssd_launches=want,
+         max_memory_allocated=peak)
+    if launches != {"ssd_scan": want, "topk_gating": 0, "flash_attention": 0}:
+        raise AssertionError(f"mamba path launches {launches}, expected ssd_scan {want}")
+
+    plain = same_weights(model, dataclasses.replace(flags, ssd_impl="jnp"))
+    ref = same_weights(model, dataclasses.replace(flags, ssd_impl="jnp", dtype="float32"),
+                       cast=torch.float32)
+    long = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, 600))
+    for toks in (tokens, long):
+        with torch.inference_mode():
+            lk, _ = model.prefill({"tokens": toks})
+            lp, _ = plain.prefill({"tokens": toks})
+            lr, _ = ref.prefill({"tokens": toks})
+        drift_gate(lk, lp, lr, "main_ssm", n_layers=cfg.n_layers, shape=list(toks.shape))
+    del plain, ref
+    torch.cuda.empty_cache()
+    serve_times(model, tokens, "main_ssm", gen_s, slot_s, slot_new, peak)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_main(seed):
+    """deepseek-moe-16b at full width and depth (28 layers), bf16, flash
+    attention: Engine and SlotServer with the llama2-7b traffic.  K5's
+    launches must equal 27 MoE layers x forward calls, K3's 28 x prefills.
+    The router logits K5 received are recorded and replayed through its
+    plain version.  Drift gate on a 4-layer full-width copy."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_arch(MOE_ARCH)
+    flags = BuildFlags(dtype="bfloat16", attn_impl="flash")
+    t0 = time.perf_counter()
+    model = Model(cfg, flags, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("init", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, weight_bytes=n_params * 2, seconds=time.perf_counter() - t0)
+    specs = cfg.layer_specs()
+    n_moe = sum(1 for s in specs if s.ffn == "moe")
+    n_attn = sum(1 for s in specs if s.mixer in ("attn", "attn_local"))
+    slot_new = list(SLOT_NEW)
+
+    # ---- the main path, with every kernel's launch count set to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    for kern in (k4.ssd_scan, k5.topk_gating, fa.flash_attention):
+        kern.launches = 0
+    tokens, _, gen_s, slot_s, calls = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
+    launches = {"ssd_scan": k4.ssd_scan.launches, "topk_gating": k5.topk_gating.launches,
+                "flash_attention": fa.flash_attention.launches}
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ssd_scan": 0, "topk_gating": n_moe * (calls["prefill"] + calls["decode"]),
+            "flash_attention": n_attn * calls["prefill"]}
+    emit("main_moe", arch=cfg.name, engine_seconds=gen_s, slot_server_seconds=slot_s,
+         calls=calls, launches=launches, expected=want, max_memory_allocated=peak)
+    if launches != want:
+        raise AssertionError(f"moe path launches {launches}, expected {want}")
+
+    # ---- the same traffic again, untimed, with K5's inputs and outputs
+    # recorded for the replay below (the copies would slow the timed run)
+    seen = []
+    real = moe_mod.topk_gating
+
+    def recording(logits, k):
+        out = real(logits, k)
+        seen.append((logits.clone(), out[0].clone(), out[1].clone()))
+        return out
+    moe_mod.topk_gating = recording
+    _, _, rec_gen_s, rec_slot_s, _ = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
+    moe_mod.topk_gating = real
+    if len(seen) != want["topk_gating"]:
+        raise AssertionError(f"the recorded run called K5 {len(seen)} times, "
+                             f"expected {want['topk_gating']}")
+
+    # ---- replay K5's recorded inputs through its plain version: ids equal
+    # except where two neighbouring ranks' probabilities are within one ulp
+    rows = mismatched = unexplained = 0
+    p_err = 0.0
+    for logits, p, ids in seen:
+        k = ids.shape[1]
+        want_p, want_ids = k5.topk_gating_plain(logits, k + 1)
+        p_err = max(p_err, (p - want_p[:, :k]).abs().max().item())
+        differ = (ids != want_ids[:, :k]).any(dim=1)
+        rows += ids.shape[0]
+        for r in torch.nonzero(differ).flatten().tolist():
+            mismatched += 1
+            j = int(torch.nonzero(ids[r] != want_ids[r, :k])[0])
+            a, b = want_p[r, j], want_p[r, j + 1]
+            if (a - b).abs() > (torch.nextafter(a, a + 1) - a):
+                unexplained += 1
+    emit("moe_routing_replay", calls=len(seen), rows=rows, rows_with_other_ids=mismatched,
+         unexplained=unexplained, max_abs_p_err=p_err, tol=TOPK_P_TOL,
+         recording_run_engine_seconds=rec_gen_s, recording_run_slot_server_seconds=rec_slot_s)
+    if unexplained or p_err > TOPK_P_TOL:
+        raise AssertionError(f"K5 on the main path disagrees with its plain version: "
+                             f"{unexplained} rows, max |dp| {p_err}")
+    del seen
+    serve_times(model, tokens, "main_moe", gen_s, slot_s, slot_new, peak)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- drift gate on a 4-layer full-width copy: the bf16 flash path and
+    # the bf16 plain grouped path, each against an fp32 copy on the plain
+    # path.  Routing in bf16 flips a token's expert where two gate
+    # probabilities sit within bf16 noise, in either bf16 path, so the gate
+    # compares root-mean-square distances (the max is reported beside it).
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_DRIFT_LAYERS)
+    small = Model(cfg4, flags, device="cuda", seed=seed)
+    plain = same_weights(small, dataclasses.replace(flags, attn_impl="xla"))
+    ref = same_weights(small, dataclasses.replace(flags, attn_impl="xla", dtype="float32"),
+                       cast=torch.float32)
+    with torch.inference_mode():
+        lk, _ = small.prefill({"tokens": tokens})
+        lp, _ = plain.prefill({"tokens": tokens})
+        lr, _ = ref.prefill({"tokens": tokens})
+    drift_gate(lk, lp, lr, "main_moe", n_layers=MOE_DRIFT_LAYERS, shape=list(tokens.shape),
+               metric="rms_diff")
+    del small, plain, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssd_bound(b, s, h, p, n, q, dtype):
+    """(bound_ms, bound_by) of one K4 call: x, a_log, dt, b, c read once, y
+    and the fp32 state written once; operations as this call's chunks need
+    them, C·Bᵀ once per (batch, chunk) (it is the same for every head), the
+    rest per head: the causal S·X product, the incoming state's term and the
+    state update, 2 flops a multiply-add, exp and the decay's 2 products as
+    3 per (i, j) pair.  Over the dtype's peak, as for K3."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * 2 * b * s * h + 4 * b * h * p * n
+    flops = 0
+    for c0 in range(0, s, q):
+        L = min(q, s - c0)
+        pairs = L * (L + 1) // 2
+        flops += b * 2 * n * pairs
+        flops += b * h * (2 * p * pairs + 3 * pairs + 4 * n * p * L)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def topk_bound(t, e, k):
+    """(bound_ms, bound_by) of one K5 call: the logits read once, p and ids
+    written once; the softmax (max, exp, sum, divide: 4 per logit) and k
+    compare-and-select steps (2 per logit each), fp32 off the tensor cores."""
+    nbytes = 4 * t * e + 8 * t * k
+    flops = t * e * (4 + 2 * k)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches):
+    """Times of K4 at the Engine's prefill and the 600-token slot prefill, and
+    of K5 at the Engine's prefill (T = 256), beside their bounds and plain
+    versions; K5 also beside softmax + topk (two library calls)."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+
+    rows = {}
+    for name, b, s, h, p, n, chunk, dtype in ssd_main_path_cases():
+        if name not in ("engine_prefill", "slot_prefill_s600"):
+            continue
+        args = ssd_inputs(b, s, h, p, n, dtype, seed=7)
+        q = k4.clamp_chunk(chunk, s)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, q, dtype)
+
+        def kernel():
+            return k4.ssd_scan(*args, chunk=chunk)
+
+        def plain():
+            return k4.ssd_scan_plain(*args, chunk=q)
+        rows[name] = dict(ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 50), library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
+                          **device_times(kernel=kernel, plain=plain))
+        emit("time", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q, dtype=dtype,
+             grid=[b * h], smem_bytes=k4.smem_bytes(p, n, q), **rows[name])
+
+    name, t, e, k = topk_main_path_cases()[0]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    logits = torch.randn((t, e), generator=g, device="cuda")
+    bound_ms, bound_by = topk_bound(t, e, k)
+
+    def kernel():
+        return k5.topk_gating(logits, k)
+
+    def plain():
+        return k5.topk_gating_plain(logits, k)
+
+    def pair():
+        return torch.topk(torch.softmax(logits, dim=-1), k)
+    rows["topk"] = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 200), library_ms=None,
+                        softmax_topk_two_calls_ms=cuda_ms(pair, 200),
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
+                        **device_times(kernel=kernel, plain=plain, softmax_topk=pair))
+    emit("time", kernel="topk_gating", case=name, shape=[t, e, k],
+         grid=[-(-t // 8)], **rows["topk"])
+    main = rows["engine_prefill"]
+    return [{"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:26",
+             "launches": ssm_launches["ssd_scan"],
+             "max_abs_err": max(ssd_errs[c[0]] for c in ssd_main_path_cases()),
+             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None},
+            {"name": "topk_gating", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/topk_gating.cu",
+             "replaces": "src/repro/kernels/topk_gating.py:16",
+             "launches": moe_launches["topk_gating"], "max_abs_err": topk_err,
+             "ms": rows["topk"]["ms"], "plain_ms": rows["topk"]["plain_ms"],
+             "bound_ms": rows["topk"]["bound_ms"], "bound_by": rows["topk"]["bound_by"],
+             "library_ms": None}]
+
 
 # ---------------------------------------------------------------------------
 # The GP path (the searcher's surrogate): K1a, K1b, K2
@@ -981,7 +1449,8 @@ def main():
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    infos = build.build_all(["flash_attention", "gp_ops"], force=True)
+    infos = build.build_all(["flash_attention", "gp_ops", "ssd_scan", "topk_gating"],
+                            force=True)
     emit("build", wall_seconds=time.perf_counter() - t0,
          kernels={n: {"seconds": i.seconds, "library": str(i.path.relative_to(REPO))}
                   for n, i in infos.items()})
@@ -989,13 +1458,18 @@ def main():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
 
     errs = phase_parity()
+    ssd_errs = phase_ssd_parity()
+    topk_err = phase_topk_parity()
     launches = phase_main_path(N_LAYERS, SEED)
     phase_two_layer_gap(SEED)
     phase_small_reference()
+    ssm_launches = phase_ssm_main(SEED)
+    moe_launches = phase_moe_main(SEED)
     gp_errs = phase_gp_parity()
     phase_search_small()
     gp_launches = phase_search_main()
-    kernels = phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches)
+    kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches)
+               + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,0 +1,88 @@
+"""K5: fused MoE router gating (softmax over E, then top-k), for Hopper.
+
+Replaces the Pallas TPU kernel ``repro/kernels/topk_gating.py::_gating_kernel``
+and its wrapper ``repro/kernels/ops.py::topk_gating``; the plain version below
+computes what the oracle ``repro/kernels/ref.py::topk_gating_ref`` and the
+reference MoE (``repro/models/moe.py``: ``softmax`` then ``lax.top_k``)
+compute, ties included: among equal probabilities the lower expert index
+comes first.
+
+The CUDA kernel is ``csrc/topk_gating.cu`` (built by ``kernels.build`` with
+nvcc for ``sm_90a`` and called through ``ctypes``): one warp per token row,
+the softmax's max and sum through shuffles, then k argmax-and-mask steps.
+It masks the ragged T itself, so there is no ``block_t`` padding.
+
+What bounds it on an H100: at deepseek-moe-16b's router (E = 64, k = 6) the
+row count is at most a few hundred, so it moves tens of KB and the launch
+dominates.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_EXPERTS = 256
+MAX_K = 8
+
+
+def topk_gating_plain(logits, k):
+    """logits (T, E) -> (top_p (T, k) fp32, top_ids (T, k) int32).
+
+    ``exp(x - max) / sum`` as the Pallas kernel writes it, then a stable
+    descending sort, which keeps equal probabilities in index order
+    (``torch.topk`` does not promise that order).
+    """
+    x = logits.float()
+    ex = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    top_p, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top_p[:, :k].contiguous(), top_ids[:, :k].to(torch.int32).contiguous()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("topk_gating")
+    if not getattr(lib, "_typed", False):
+        lib.topk_gating_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.topk_gating_fwd.restype = ctypes.c_int
+        lib.topk_gating_error_string.argtypes = [ctypes.c_int]
+        lib.topk_gating_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def topk_gating(logits, k):
+    """Softmax over the last axis of ``logits`` (T, E), then its top ``k``.
+
+    Returns (top_p (T, k) fp32, top_ids (T, k) int32).  A CPU tensor goes
+    through ``topk_gating_plain``.  A CUDA tensor launches the CUDA kernel or
+    raises.
+    """
+    if logits.device.type == "cpu":
+        return topk_gating_plain(logits, k)
+    if logits.device.type != "cuda":
+        raise ValueError(f"topk_gating runs on cuda or cpu, not {logits.device}")
+    if logits.dim() != 2 or logits.dtype != torch.float32 or not logits.is_contiguous():
+        raise ValueError(f"topk_gating wants contiguous (T, E) float32 logits, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    t, e = logits.shape
+    if t < 1 or not 1 <= e <= MAX_EXPERTS or not 1 <= k <= min(MAX_K, e):
+        raise ValueError(f"topk_gating takes T >= 1, E <= {MAX_EXPERTS} and "
+                         f"k <= min({MAX_K}, E); got T={t}, E={e}, k={k}")
+    top_p = torch.empty((t, k), dtype=torch.float32, device=logits.device)
+    top_ids = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+    lib = _lib()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = lib.topk_gating_fwd(logits.data_ptr(), top_p.data_ptr(), top_ids.data_ptr(),
+                                  t, e, k, stream)
+    if err:
+        msg = lib.topk_gating_error_string(err).decode()
+        raise RuntimeError(f"topk_gating launch failed: cudaError {err} ({msg})")
+    topk_gating.launches += 1
+    return top_p, top_ids
+
+
+topk_gating.launches = 0   # launches of the CUDA kernel in this process

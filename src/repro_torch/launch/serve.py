@@ -6,7 +6,12 @@
 Runs on the CUDA card unless ``--device`` names another (``--device cpu``
 runs the plain PyTorch path); it raises when no card is visible.  The
 attention path defaults to ``flash`` (the CUDA kernel K3); ``--attn-impl
-xla`` selects the plain grouped path, the reference's default.
+xla`` selects the plain grouped path, the reference's default.  The Mamba-2
+scan defaults to ``cuda`` (the CUDA kernel K4); ``--ssd-impl jnp`` selects
+the plain chunked path, the reference's default.  On the card the two plain
+choices serve the same weights without K3 or K4, so an operator whose output
+looks wrong can tell a kernel fault from a model fault by comparing the
+tokens.  MoE routing always goes through the gating kernel K5 on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +30,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
-    p.add_argument("--attn-impl", choices=("xla", "flash"), default="flash")
+    p.add_argument("--attn-impl", choices=("xla", "flash"), default="flash",
+                   help="xla: the plain grouped path, without the kernel K3")
+    p.add_argument("--ssd-impl", choices=("jnp", "cuda"), default="cuda",
+                   help="jnp: the plain chunked scan, without the kernel K4")
     return p.parse_args(argv)
 
 
@@ -41,7 +49,7 @@ def main(argv=None):
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
-    flags = BuildFlags(dtype=args.dtype, attn_impl=args.attn_impl)
+    flags = BuildFlags(dtype=args.dtype, attn_impl=args.attn_impl, ssd_impl=args.ssd_impl)
     model = Model(arch, flags, device=args.device, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, arch.vocab_size,
@@ -54,7 +62,8 @@ def main(argv=None):
         torch.cuda.synchronize(model.device)
     dt = time.time() - t0
     print(f"[serve] arch={arch.name} device={model.device} attn={args.attn_impl} "
-          f"batch={args.batch} prompt={res.n_prompt} generated={res.n_generated} "
+          f"ssd={args.ssd_impl} batch={args.batch} prompt={res.n_prompt} "
+          f"generated={res.n_generated} "
           f"in {dt:.2f}s ({args.batch*args.gen/dt:.1f} tok/s)")
     print("[serve] first sequence:", res.tokens[0][:16].tolist())
     return res

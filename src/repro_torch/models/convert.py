@@ -4,10 +4,14 @@ The reference keeps its parameters in a nested dict: ``embed/table``,
 ``final_norm/scale``, ``head/w`` (absent with tied embeddings), then the
 layers in sections (``head_layers/g*``, ``scan`` with a leading
 ``(n_groups,)`` axis on every leaf, ``tail``), each layer as
-``l{i}/{mixer,ffn}/...``.  The port holds the layers in one list in the
-same order (``transformer.layer_layout``); these helpers map one onto the
-other.  They take numpy arrays (bfloat16 arrays from ``ml_dtypes`` too) and
-return CPU tensors.
+``l{i}/{mixer,ffn}/...``: attention (``wq``, ``wk``, ``wv``, ``wo``) or
+Mamba-2 (``wz``, ``wx``, ..., ``A_log``, ``D``, ``dt_bias``) mixers, dense
+(``norm``, ``mlp/*``) or MoE (``norm``, ``router``, ``experts/{wi_gate,
+wi_up,wo}`` as (E, d, f)/(E, f, d), ``shared/*``) FFNs.  The port holds the
+layers in one list in the same order (``transformer.layer_layout``) and
+names each module after the reference's keys, so these helpers map one onto
+the other leaf by leaf.  They take numpy arrays (bfloat16 arrays from
+``ml_dtypes`` too) and return CPU tensors.
 """
 from __future__ import annotations
 
@@ -45,9 +49,15 @@ def _take(node, group):
 
 
 def _layer_node(tree, section, group, li):
-    node = tree
-    for part in section.split("/"):
-        node = node[part]
+    """Layer ``li`` of ``section``.  The reference's params nest a section
+    name (``head_layers`` -> ``g0``); its caches key it whole
+    (``"head_layers/g0"``)."""
+    if section in tree:
+        node = tree[section]
+    else:
+        node = tree
+        for part in section.split("/"):
+            node = node[part]
     return _take(node[f"l{li}"], group)
 
 
@@ -66,7 +76,8 @@ def params_from_jax(np_params, cfg) -> Dict[str, torch.Tensor]:
 
 def caches_from_jax(np_caches, cfg) -> List[Dict[str, torch.Tensor]]:
     """The reference's cache tree (e.g. ``scan/l0/{k,v}`` of shape
-    (G, B, S, Hkv, dh)) -> the port's per-layer list of ``{"k", "v"}``."""
+    (G, B, S, Hkv, dh), or ``scan/l0/{state,conv}``) -> the port's per-layer
+    list of ``{"k", "v"}`` / ``{"state", "conv"}``."""
     return [{name: to_tensor(leaf) for name, leaf in
              flatten(_layer_node(np_caches, section, group, li))}
             for section, group, li, _ in layer_layout(cfg)]

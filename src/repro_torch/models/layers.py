@@ -42,6 +42,11 @@ def rmsnorm(x, scale, eps=1e-6):
     return (y * scale.float()).to(dt)
 
 
+def gated_rmsnorm(x, gate, scale, eps=1e-6):
+    """Mamba-2 style: normalise ``x * silu(gate)``."""
+    return rmsnorm(x * F.silu(gate), scale, eps)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d, dtype, device):
         super().__init__()

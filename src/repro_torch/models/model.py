@@ -1,10 +1,11 @@
 """Model facade: prefill / decode built from ArchConfig (port of ``repro/models/model.py``).
 
 ``BuildFlags`` holds the reference's fields that the serving path reads,
-with the reference's defaults: ``dtype``, ``attn_impl`` and the attention
-tile knobs.  The training, sharding and scan fields (``ssd_impl``, ``remat``,
-``loss_chunks``, ``sp``, ``fsdp``, ``grad_rs``, ``unroll``) are added by the
-slice that first reads them.
+with the reference's defaults: ``dtype``, ``attn_impl``, the attention tile
+knobs and ``ssd_impl``, whose ``"cuda"`` (the kernel K4) is the counterpart
+of the reference's ``"pallas"``.  The training, sharding and scan fields
+(``remat``, ``loss_chunks``, ``sp``, ``fsdp``, ``grad_rs``, ``unroll``) are
+added by the slice that first reads them.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class BuildFlags:
     attn_impl: str = "xla"             # xla (plain grouped path) | flash (K3)
     attn_block_q: int = 256
     attn_block_kv: int = 256
+    ssd_impl: str = "jnp"              # jnp (plain chunked path) | cuda (K4)
 
     @property
     def tdtype(self) -> torch.dtype:

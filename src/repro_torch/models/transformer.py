@@ -7,10 +7,11 @@ the homogeneous ``scan`` groups, then the ``tail`` remainder.
 ``Stack.layout`` records, for each layer, where the reference keeps its
 weights (section, group index within a scanned section, position in the
 group), which is what ``models.convert`` uses to carry weights and caches
-across.  Caches are a list with one ``{"k", "v"}`` dict per layer.
+across.  Caches are a list with one dict per layer: ``{"k", "v"}`` for an
+attention mixer, ``{"state", "conv"}`` for a Mamba-2 mixer.
 
-This slice ports attention mixers (``attn``, ``attn_local``) with dense
-FFNs.  Mamba-2 mixers and MoE FFNs raise ``NotImplementedError``.
+Mixers: ``attn``, ``attn_local`` (``models.attention``) and ``mamba``
+(``models.mamba2``); FFNs: ``dense``, ``moe`` (``models.moe``) and ``none``.
 """
 from __future__ import annotations
 
@@ -19,15 +20,8 @@ from typing import List, Optional, Tuple
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.layers import MLP, RMSNorm
-
-_NOT_PORTED = {
-    "mamba": "Mamba-2 mixers are not ported yet (ROADMAP Queue 1, slice 3: "
-             "models/mamba2.py with the SSD kernel K4)",
-    "moe": "MoE FFNs are not ported yet (ROADMAP Queue 1, slice 4: "
-           "models/moe.py with the gating kernel K5)",
-}
 
 
 class DenseFFN(nn.Module):
@@ -44,28 +38,43 @@ class DenseFFN(nn.Module):
 class Layer(nn.Module):
     def __init__(self, spec, cfg, dtype, device, generator=None):
         super().__init__()
-        if spec.mixer not in ("attn", "attn_local"):
-            raise NotImplementedError(_NOT_PORTED["mamba"])
-        if spec.ffn != "dense":
-            raise NotImplementedError(_NOT_PORTED.get(spec.ffn, f"ffn {spec.ffn!r}"))
         self.cfg = cfg
+        self.is_attn = spec.mixer in ("attn", "attn_local")
         self.window = cfg.sliding_window if spec.mixer == "attn_local" else 0
-        self.mixer = attention.Attention(cfg, dtype, device, generator)
-        self.ffn = DenseFFN(cfg, dtype, device, generator)
+        if self.is_attn:
+            self.mixer = attention.Attention(cfg, dtype, device, generator)
+        else:
+            self.mixer = mamba2.Mamba(cfg, dtype, device, generator)
+        self.ffn_kind = spec.ffn
+        if spec.ffn == "dense":
+            self.ffn = DenseFFN(cfg, dtype, device, generator)
+        elif spec.ffn == "moe":
+            self.ffn = moe.MoE(cfg, dtype, device, generator)
+
+    def _ffn(self, x):
+        if self.ffn_kind == "dense":
+            return x + self.ffn(x, self.cfg.norm_eps)
+        if self.ffn_kind == "moe":
+            return x + moe.moe_ffn(self.ffn, x, self.cfg)
+        return x
 
     def full(self, x, flags):
         """Full-seq layer.  Returns (x, cache)."""
-        h, cache = attention.full_attention(
-            self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
-            attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv)
-        x = x + h
-        return x + self.ffn(x, self.cfg.norm_eps), cache
+        if self.is_attn:
+            h, cache = attention.full_attention(
+                self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
+                attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv)
+        else:
+            h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
+        return self._ffn(x + h), cache
 
     def decode(self, x, cache, pos):
-        h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
-                                              window=self.window)
-        x = x + h
-        return x + self.ffn(x, self.cfg.norm_eps), cache
+        if self.is_attn:
+            h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
+                                                  window=self.window)
+        else:
+            h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
+        return self._ffn(x + h), cache
 
 
 def _group_layout(cfg: ArchConfig):
@@ -133,4 +142,6 @@ class Stack(nn.Module):
 
 def empty_caches(cfg, batch, seq_len, dtype, device):
     return [attention.empty_cache(cfg, batch, seq_len, dtype, device)
-            for _ in layer_layout(cfg)]
+            if spec.mixer in ("attn", "attn_local")
+            else mamba2.empty_mamba_cache(cfg, batch, device)
+            for *_, spec in layer_layout(cfg)]

@@ -23,8 +23,11 @@ class GenerationResult:
 
 
 def pad_caches(caches, cur_len: int, max_len: int):
-    """Grow prefill caches (seq axis cur_len) to max_len slots, zero-filled."""
-    return [{name: F.pad(c, (0, 0, 0, 0, 0, max_len - cur_len)) for name, c in layer.items()}
+    """Grow the attention K/V of prefill caches (seq axis cur_len) to max_len
+    slots, zero-filled.  A Mamba layer's ``state``/``conv`` have no seq axis
+    and stay as prefill returned them."""
+    return [{name: F.pad(c, (0, 0, 0, 0, 0, max_len - cur_len)) if name in ("k", "v") else c
+             for name, c in layer.items()}
             for layer in caches]
 
 

@@ -7,10 +7,11 @@ slots keep decoding.  ``SlotServer`` implements that loop on top of the same
 ``Model.prefill``/``decode_step``, passing a (B,) position tensor so every
 row writes and attends at its own causal frontier.
 
-Slot hygiene: a freed slot's cache rows are overwritten by the next prefill
-on [0, prompt_len) and zeroed past it, and every later position is written
-by decode before it enters the attention frontier, so stale rows are never
-attended.
+Slot hygiene: a freed slot's attention K/V rows are overwritten by the next
+prefill on [0, prompt_len) and zeroed past it, and every later position is
+written by decode before it enters the attention frontier, so stale rows are
+never attended.  A Mamba layer's ``state`` and ``conv`` rows of the slot are
+overwritten whole (a conv window longer than the prompt is zero past it).
 """
 from __future__ import annotations
 
@@ -51,12 +52,19 @@ class SlotServer:
         logits, fresh = self.model.prefill({"tokens": req.tokens[None, :]})
         plen = len(req.tokens)
         # The reference merges the batch-1 cache into the shared one with a
-        # padded dynamic_update_slice; here the slot's rows are written in
-        # place: the prompt's K/V on [0, plen), zeros after.
+        # right-zero-padded dynamic_update_slice; here the slot's rows are
+        # written in place, cast to the shared leaf's dtype (Mamba state and
+        # conv are fp32 there, prefill's conv is in the model's dtype).  Dim 1
+        # of a fresh leaf holds what prefill produced: attention K/V's plen
+        # rows, the Mamba state's H heads (all of them), and the conv
+        # window's min(plen, K-1) rows.  What it lacks is zeroed, as the
+        # reference's pad does, so a prompt shorter than the conv window
+        # leaves the window's tail zero there too.
         for shared, new in zip(self.caches, fresh):
             for name, c in shared.items():
-                c[slot, :plen] = new[name][0].to(c.dtype)
-                c[slot, plen:] = 0
+                rows = new[name].shape[1]
+                c[slot, :rows] = new[name][0].to(c.dtype)
+                c[slot, rows:] = 0
         first = int(torch.argmax(logits[0]))
         req.out.append(first)
         self.active[slot] = req

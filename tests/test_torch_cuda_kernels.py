@@ -1,4 +1,4 @@
-"""The CUDA kernels (K3; K1a, K1b, K2) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K3; K1a, K1b, K2; K4, K5) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and nvcc; where PyTorch sees no device
 they skip (decided inside the fixture, so every worker collects the same
@@ -8,7 +8,12 @@ tests/test_torch_cuda_kernels.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2;
 a bf16 output is also held against the plain version in fp32 at one bf16
-rounding (atol 1e-4, rtol 2**-8).  The GP kernels are float64: w, g and
+rounding (atol 1e-4, rtol 2**-8).  K4 (the SSD scan): fp32 at 1e-4
+(``tests/test_kernels.py``'s ``ssd`` tolerance); a bf16 y at 2e-2 and its
+fp32 final state at 1e-4 (both versions compute in fp32 from the same bf16
+inputs).  K5 (top-k gating): ids equal, ties included, and probabilities
+within 1e-6.  K4 and K5 launched twice on the same inputs are bitwise
+equal.  The GP kernels are float64: w, g and
 the new rows of L and L⁻¹ within 1e-10 · max(1, max|ref|), EHVI within 1e-8
 absolute (``tests/test_gp_pallas.py``'s gate), and two launches on the same
 inputs bitwise equal.
@@ -227,3 +232,143 @@ def test_gp_searcher_runs_through_the_kernels(cuda):
     assert (gp_ops.gp_w.launches - before[0], gp_ops.gp_g.launches - before[1],
             gp_ops.gp_ehvi.launches - before[2]) == (s["cuda_appends"], s["cuda_appends"],
                                                        s["cuda_scores"])
+
+
+# ---------------------------------------------------------------------------
+# K4 (the SSD scan) and K5 (top-k gating) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _ssd(dev, b, s, h, p, n, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=dev))
+    a_log = -dt * torch.sigmoid(torch.randn((b, s, h), generator=g, device=dev))
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    bb = (0.4 * torch.randn((b, s, n), generator=g, device=dev)).to(dtype)
+    cc = (0.4 * torch.randn((b, s, n), generator=g, device=dev)).to(dtype)
+    return x, a_log, bb, cc, dt
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", [
+    (2, 64, 2, 16, 16, 16, torch.float32),        # tests/test_kernels.py's grid
+    (2, 96, 4, 32, 32, 32, torch.float32),
+    (2, 40, 1, 16, 64, 16, torch.float32),
+    (4, 64, 48, 64, 128, 256, torch.bfloat16),    # mamba2-780m: the Engine's prefill
+    (1, 17, 48, 64, 128, 256, torch.bfloat16),    # a slot prefill, chunk clamped to 32
+    (1, 600, 48, 64, 128, 256, torch.bfloat16),   # 3 chunks, the last one ragged
+    (1, 300, 128, 64, 16, 256, torch.bfloat16),   # jamba-like: H 128, N 16
+    (2, 200, 4, 128, 64, 64, torch.float32),      # P 128, 64-row chunks
+], ids=["grid0", "grid1", "grid2_pad", "engine", "slot17", "s600", "jamba", "p128"])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    from repro_torch.kernels import ssd_scan as k4
+
+    args = _ssd(cuda, b, s, h, p, n, dtype, seed=s + h)
+    before = k4.ssd_scan.launches
+    y, state = k4.ssd_scan(*args, chunk=chunk)
+    y2, state2 = k4.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert k4.ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    want_y, want_state = k4.ssd_scan_plain(*args, chunk=k4.clamp_chunk(chunk, s))
+    assert y.dtype == dtype and state.dtype == torch.float32
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import ssd_scan as k4
+
+    x, a_log, bb, cc, dt = _ssd(cuda, 1, 16, 2, 48, 16, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        k4.ssd_scan(x, a_log, bb, cc, dt)
+    x, a_log, bb, cc, dt = _ssd(cuda, 1, 16, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        k4.ssd_scan(x, a_log.double(), bb, cc, dt)
+    with pytest.raises(ValueError, match="dtypes"):
+        k4.ssd_scan(x, a_log, bb.bfloat16(), cc, dt)
+
+
+@pytest.mark.parametrize("t,e,k,ties", [
+    (256, 64, 6, False),    # deepseek-moe-16b at the Engine's prefill
+    (256, 64, 6, True),     # rows with exact ties
+    (1, 64, 6, False), (37, 64, 6, True), (1000, 16, 4, False),   # T off any block
+    (33, 256, 8, False), (40, 4, 4, True), (9, 2, 2, True),
+])
+def test_topk_kernel_matches_plain(cuda, t, e, k, ties):
+    from repro_torch.kernels import topk_gating as k5
+
+    g = torch.Generator(device=cuda).manual_seed(t + e + k)
+    logits = torch.randn((t, e), generator=g, device=cuda)
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    before = k5.topk_gating.launches
+    p, ids = k5.topk_gating(logits, k)
+    p2, ids2 = k5.topk_gating(logits, k)
+    torch.cuda.synchronize()
+    assert k5.topk_gating.launches == before + 2
+    assert torch.equal(p, p2) and torch.equal(ids, ids2)
+    want_p, want_ids = k5.topk_gating_plain(logits, k)
+    assert ids.dtype == torch.int32 and torch.equal(ids, want_ids)
+    assert (p - want_p).abs().max().item() <= 1e-6
+
+
+def test_topk_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import topk_gating as k5
+
+    with pytest.raises(ValueError, match="E <= 256"):
+        k5.topk_gating(torch.zeros((4, 300), device=cuda), 2)
+    with pytest.raises(ValueError, match="k <="):
+        k5.topk_gating(torch.zeros((4, 16), device=cuda), 9)
+    with pytest.raises(ValueError, match="float32"):
+        k5.topk_gating(torch.zeros((4, 16), device=cuda, dtype=torch.float64), 2)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_new_families_run_through_the_kernels(cuda, name):
+    """Reduced fp32 models on the card: K4 once per Mamba layer and K5 once
+    per MoE layer of a prefill; logits within 5e-5 of the same weights on the
+    plain SSD path and on the CPU."""
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+
+    cfg = reduced(get_arch(name))
+    flags = BuildFlags(dtype="float32", ssd_impl="cuda")
+    model = Model(cfg, flags, device=cuda, seed=0)
+    plain = Model(cfg, BuildFlags(dtype="float32", ssd_impl="jnp"), device=cuda, seed=None)
+    plain.load_state_dict(model.state_dict())
+    cpu = Model(cfg, flags, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21))
+    specs = cfg.layer_specs()
+    n_mamba = sum(s.mixer == "mamba" for s in specs)
+    n_moe = sum(s.ffn == "moe" for s in specs)
+    before = (k4.ssd_scan.launches, k5.topk_gating.launches)
+    with torch.inference_mode():
+        lk, _ = model.prefill({"tokens": toks})
+    assert (k4.ssd_scan.launches - before[0], k5.topk_gating.launches - before[1]) == (
+        n_mamba, n_moe)
+    with torch.inference_mode():
+        lp, _ = plain.prefill({"tokens": toks})
+        lc, _ = cpu.prefill({"tokens": toks})
+    torch.testing.assert_close(lk, lp, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(lk.cpu(), lc, atol=5e-5, rtol=5e-5)
+
+
+def test_mamba_slot_server_equals_engine_on_the_card(cuda):
+    """Reduced fp32 mamba2-780m with K4 on the card: each request served by a
+    SlotServer (3 requests over 2 slots) gives the tokens of a solo Engine."""
+    from repro_torch.serve import Engine, SlotServer
+
+    cfg = reduced(get_arch("mamba2-780m"))
+    model = Model(cfg, BuildFlags(dtype="float32", ssd_impl="cuda"), device=cuda, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 19, 7)]
+    new = [6, 4, 8]
+    srv = SlotServer(model, n_slots=2, max_len=48)
+    for i, (p, n) in enumerate(zip(prompts, new)):
+        srv.submit(i, p, n)
+    got = {r.rid: r.out for r in srv.run()}
+    for i, (p, n) in enumerate(zip(prompts, new)):
+        solo = Engine(model, max_len=48).generate({"tokens": p[None]}, n)
+        assert got[i] == solo.tokens[0].tolist()

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as k4
+from repro_torch.kernels import topk_gating as k5
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -26,6 +28,12 @@ res = serve.main(["--arch", "llama2-7b", "--reduced", "--batch", "2", "--prompt-
                   "--gen", "4", "--device", "cpu", "--attn-impl", "flash"])
 assert res.tokens.shape == (2, 4), res.tokens.shape
 assert fa.flash_attention.launches == 0
+from repro_torch.kernels import ssd_scan as k4, topk_gating as k5
+for arch in ("mamba2-780m", "deepseek-moe-16b"):
+    res = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8",
+                      "--gen", "4", "--device", "cpu", "--ssd-impl", "cuda"])
+    assert res.tokens.shape == (2, 4), res.tokens.shape
+assert k4.ssd_scan.launches == k5.topk_gating.launches == fa.flash_attention.launches == 0
 from repro_torch.core import BayesOpt, tpu_pod_space
 from repro_torch.core.search import gp_cuda, gp_torch
 from repro_torch.kernels import gp_ops
@@ -67,8 +75,23 @@ def test_serve_cli_defaults_to_the_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve.parse_args([]).attn_impl == "flash"
+    assert serve.parse_args([]).ssd_impl == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+
+
+def test_serve_cli_plain_ssd_path_gives_the_same_tokens():
+    """``--ssd-impl jnp`` (the plain chunked scan) and the default serve the
+    same tokens; on the CPU neither launches K4."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "mamba2-780m", "--reduced", "--batch", "2", "--prompt-len", "9",
+            "--gen", "4", "--device", "cpu"]
+    before = k4.ssd_scan.launches
+    plain = serve.main(argv + ["--ssd-impl", "jnp"])
+    default = serve.main(argv)
+    assert k4.ssd_scan.launches == before
+    np.testing.assert_array_equal(plain.tokens, default.tokens)
 
 
 def test_gp_tiers_default_to_the_card(monkeypatch):
@@ -102,6 +125,39 @@ def test_other_devices_raise():
     q = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(q, q, q)
+
+
+def _k4_k5_calls(dev):
+    """(wrapper, its call, the plain version's call) for K4 and K5 on small inputs."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 20, 2, 16)).astype(np.float32)
+    dt = rng.uniform(0.1, 1.0, (1, 20, 2)).astype(np.float32)
+    b, c = rng.standard_normal((2, 1, 20, 16)).astype(np.float32)
+    ssd = [torch.from_numpy(a).to(dev) for a in (x, -dt, b, c, dt)]
+    logits = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32)).to(dev)
+    return {
+        "ssd_scan": (k4.ssd_scan, lambda: k4.ssd_scan(*ssd, chunk=256),
+                     lambda: k4.ssd_scan_plain(*ssd, chunk=k4.clamp_chunk(256, 20))),
+        "topk_gating": (k5.topk_gating, lambda: k5.topk_gating(logits, 3),
+                        lambda: k5.topk_gating_plain(logits, 3)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating"])
+def test_k4_k5_cpu_tensors_take_plain_versions(kernel):
+    wrapper, call, plain = _k4_k5_calls("cpu")[kernel]
+    before = wrapper.launches
+    got = call()
+    assert wrapper.launches == before
+    for g, w in zip(got, plain()):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating"])
+def test_k4_k5_other_devices_raise(kernel):
+    _, call, _ = _k4_k5_calls("meta")[kernel]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        call()
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -4,7 +4,11 @@ Weights come from the JAX ``Model.init`` and are carried across with
 ``repro_torch.models.convert``; token inputs come from numpy.  Everything
 runs in float32, at ``tests/test_prefill_decode.py``'s tolerance (5e-5).
 The ``flash`` path takes K3's plain version on the CPU on the port's side
-and the Pallas kernel in interpret mode on the JAX side.
+and the Pallas kernel in interpret mode on the JAX side; so does the
+``cuda`` SSD path (K4's plain version) against the reference's ``pallas``.
+The Mamba-2, MoE and hybrid families (mamba2-780m, deepseek-moe-16b,
+jamba-v0.1-52b) are held for both SSD paths: prefill logits and every cache
+leaf, one decode step, ``Engine`` tokens and ``SlotServer`` outputs.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from repro_torch.models import BuildFlags, Model
 from repro_torch.models import attention
 from repro_torch.models.convert import caches_from_jax, flatten, params_from_jax, to_tensor
 from repro_torch.serve import Engine, SlotServer
+from repro_torch.serve.engine import pad_caches
 
 TOL = dict(atol=5e-5, rtol=5e-5)
 
@@ -31,14 +36,19 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _pair(name, attn_impl="xla", seed=0, **overrides):
+# (port ssd_impl, reference ssd_impl)
+SSD_IMPLS = [("jnp", "jnp"), ("cuda", "pallas")]
+NEW_FAMILIES = ["mamba2-780m", "deepseek-moe-16b", "jamba-v0.1-52b"]
+
+
+def _pair(name, attn_impl="xla", seed=0, ssd=("jnp", "jnp"), **overrides):
     """(JAX model, JAX params, port model with the same weights)."""
     jcfg = jreduced(jget_arch(name), **overrides)
     jm = JModel(jcfg, JFlags(dtype="float32", remat="none", sp=False,
-                             attn_impl=attn_impl))
+                             attn_impl=attn_impl, ssd_impl=ssd[1]))
     params = jm.init(jax.random.key(seed))
     cfg = reduced(get_arch(name), **overrides)
-    tm = Model(cfg, BuildFlags(dtype="float32", attn_impl=attn_impl),
+    tm = Model(cfg, BuildFlags(dtype="float32", attn_impl=attn_impl, ssd_impl=ssd[0]),
                device="cpu", seed=None)
     tm.load_state_dict(params_from_jax(_np_tree(params), cfg))
     return jm, params, tm
@@ -172,7 +182,113 @@ def test_slot_server_matches_engine_and_reference():
         assert got[i] == solo.tokens[0].tolist()
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "deepseek-moe-16b", "llava-v1.5-7b"])
+def _close_caches(caches, wcaches, cfg):
+    want = caches_from_jax(_np_tree(wcaches), cfg)
+    assert len(caches) == len(want)
+    for got, w in zip(caches, want):
+        assert sorted(got) == sorted(w)
+        for name in got:
+            assert got[name].shape == w[name].shape, name
+            _close(got[name], w[name])
+
+
+@pytest.mark.parametrize("ssd", SSD_IMPLS, ids=["jnp", "cuda"])
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_families_prefill_and_decode_match_reference(name, ssd):
+    jm, params, tm = _pair(name, seed=1, ssd=ssd)
+    b, s = 2, 13                      # 13 positions: a ragged second SSD chunk
+    toks = np.random.default_rng(2).integers(0, tm.cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    wlogits, wcaches = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :s])})
+    with torch.inference_mode():
+        logits, caches = tm.prefill({"tokens": toks[:, :s]})
+    _close(logits, wlogits)
+    _close_caches(caches, wcaches, tm.cfg)
+
+    # one decode step at position s, the K/V grown by one slot as each engine does
+    wgrown = JEngine(jm, params, max_len=s + 1, donate=False)._pad_caches(wcaches, s)
+    wdec, wcaches = jm.decode_step(params, jnp.asarray(toks[:, s:]), wgrown, s)
+    with torch.inference_mode():
+        dec, caches = tm.decode_step(toks[:, s:], pad_caches(caches, s, s + 1), s)
+    _close(dec, wdec)
+    _close_caches(caches, wcaches, tm.cfg)
+
+
+@pytest.mark.parametrize("ssd", SSD_IMPLS, ids=["jnp", "cuda"])
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_families_engine_matches_reference(name, ssd):
+    """An 11-token prompt: at a prompt length equal to the SSM head count (8
+    at reduced size) the reference's shape test pads the Mamba state as if
+    it were K/V and fails; ``test_engine_pads_only_kv`` covers that length."""
+    jm, params, tm = _pair(name, seed=3, ssd=ssd)
+    toks = np.random.default_rng(3).integers(0, tm.cfg.vocab_size, (2, 11)).astype(np.int32)
+    want = JEngine(jm, params, max_len=20, donate=False).generate(
+        {"tokens": jnp.asarray(toks)}, 6)
+    got = Engine(tm, max_len=20).generate({"tokens": toks}, 6)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+
+
+def test_engine_pads_only_kv():
+    """A prompt as long as the SSM head count: the Engine grows the K/V only
+    and leaves the Mamba state and conv as prefill returned them, so its
+    tokens equal a SlotServer's, which is held against the reference above."""
+    _, _, tm = _pair("jamba-v0.1-52b", seed=4)
+    assert tm.cfg.n_ssm_heads == 8
+    toks = np.random.default_rng(4).integers(0, tm.cfg.vocab_size, (1, 8)).astype(np.int32)
+    with torch.inference_mode():
+        _, caches = tm.prefill({"tokens": toks})
+    grown = pad_caches(caches, 8, 20)
+    for before, after in zip(caches, grown):
+        for name, c in after.items():
+            assert c.shape == (before[name].shape if name in ("state", "conv")
+                               else (1, 20) + before[name].shape[2:])
+    got = Engine(tm, max_len=20).generate({"tokens": toks}, 6)
+    srv = SlotServer(tm, n_slots=2, max_len=20)
+    srv.submit(0, toks[0], 6)
+    assert got.tokens[0].tolist() == srv.run()[0].out
+
+
+@pytest.mark.parametrize("ssd", SSD_IMPLS, ids=["jnp", "cuda"])
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_families_slot_server_matches_reference(name, ssd):
+    """3 requests over 2 slots, a 9-token prompt across two SSD chunks.  The
+    MoE families are held against the reference's SlotServer only: capacity
+    drops depend on which tokens share a batch."""
+    jm, params, tm = _pair(name, seed=0, ssd=ssd)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, size=n).astype(np.int32) for n in (5, 9, 7)]
+    new_counts = [6, 4, 8]
+
+    def run(srv):
+        for i, (p, n) in enumerate(zip(prompts, new_counts)):
+            srv.submit(i, p, n)
+        return {r.rid: r.out for r in srv.run()}
+
+    got = run(SlotServer(tm, n_slots=2, max_len=32))
+    assert got == run(JSlotServer(jm, params, n_slots=2, max_len=32))
+    assert all(len(got[i]) == n for i, n in enumerate(new_counts))
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_slot_server_prompts_shorter_than_the_conv_window(name):
+    """Prompts of 1 and 2 tokens leave the slot's conv window (K-1 = 3 rows)
+    part empty: the rows prefill gives are written and the rest zeroed, as
+    the reference's SlotServer pads them."""
+    jm, params, tm = _pair(name, seed=5)
+    assert tm.cfg.ssm_conv - 1 == 3
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, size=n).astype(np.int32) for n in (1, 2, 4)]
+
+    def run(srv):
+        for i, p in enumerate(prompts):
+            srv.submit(i, p, 5)
+        return {r.rid: r.out for r in srv.run()}
+
+    got = run(SlotServer(tm, n_slots=2, max_len=16))
+    assert got == run(JSlotServer(jm, params, n_slots=2, max_len=16))
+    assert all(len(out) == 5 for out in got.values())
+
+
+@pytest.mark.parametrize("name", ["internvl2-2b", "musicgen-medium", "llava-v1.5-7b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(reduced(get_arch(name)), device="cpu")
