@@ -9,13 +9,18 @@ failed check and then prints no result):
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every kernel of every path (K3; K1a, K1b and K2 in one source;
    K4; K5) compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source
-   started together, with the ``-Xptxas -v`` resource report;
+   started together, with the ``-Xptxas -v`` resource report; each K3
+   instantiation's tensor-core (``HGMMA``) and TMA (``UTMALDG``)
+   instructions counted in its SASS (``cuobjdump -sass``): every bf16 one
+   must have both;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
    on the same inputs at one bf16 rounding (``BF16_VS_FP32``), at every
    shape the llama2-7b and deepseek-moe-16b paths give it
-   (``main_path_cases``) and beyond;
+   (``main_path_cases``) and beyond (``EXTRA_CASES``: long prompts, GQA,
+   windows, ragged edges, every head dim, gemma3-27b's heads and 1024-token
+   window at a 4096-token prompt);
    K4 (``ssd_parity``) the same way, with y and the fp32 final state at
    ``SSD_TOL`` in fp32, on ``tests/test_kernels.py``'s grid, every shape of
    the Mamba path and a jamba-like head; K5 (``topk_parity``) with ids equal
@@ -63,7 +68,9 @@ failed check and then prints no result):
    between the tiers within 1e-8; tell+ask ms, active set, capacity,
    device memory and where a cycle's time goes are printed;
 10. times: CUDA-event times of each kernel, its plain version and the
-   library call that computes the same function (where one does), as a loop
+   library call that computes the same function (where one does; for K3
+   ``scaled_dot_product_attention``, causal, or with ``enable_gqa`` and a
+   boolean window mask where there is a window), as a loop
    of launches, as one launch between synchronisations and as the
    profiler's device time, beside the least time the card could take (bytes
    over 3.35 TB/s or operations over the dtype's peak, whichever is larger),
@@ -207,6 +214,7 @@ def main_path_cases():
 # Beyond the main path: (name, B, S, H, Hkv, d, window, dtype)
 EXTRA_CASES = [
     ("long_prompt", 1, 2048, 32, 32, 128, 0, "bfloat16"),
+    ("gemma_window_4k", 1, 4096, 32, 16, 128, 1024, "bfloat16"),
     ("gqa_d64", 2, 256, 32, 4, 64, 0, "bfloat16"),
     ("ragged", 2, 200, 8, 8, 128, 0, "bfloat16"),
     ("window", 2, 300, 8, 2, 64, 96, "bfloat16"),
@@ -217,6 +225,33 @@ EXTRA_CASES = [
     ("ragged_window_fp32", 2, 200, 8, 2, 128, 48, "float32"),
     ("d16_fp32", 2, 100, 4, 2, 16, 0, "float32"),
 ]
+
+
+def phase_k3_sass(info):
+    """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in each K3
+    instantiation's SASS, by ``cuobjdump`` beside ``nvcc``; every bf16
+    instantiation must have both."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(info.path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_(bf16|fp32)ILi(\d+)E", line)
+            cur = counts.setdefault(f"{m[1]}_d{m[2]}", {"HGMMA": 0, "UTMALDG": 0}) if m else None
+        elif cur is not None:
+            for op in cur:
+                cur[op] += op in line
+    emit("k3_sass", counts=counts)
+    lacking = [f"bf16_d{d}" for d in SUPPORTED_HEAD_DIMS
+               if min(counts.get(f"bf16_d{d}", {"HGMMA": 0}).values()) == 0]
+    if lacking:
+        raise AssertionError(f"K3 bf16 instantiations without HGMMA or UTMALDG: {lacking}")
 
 
 def phase_parity():
@@ -433,38 +468,61 @@ def phase_small_reference():
         raise AssertionError("small fp32 model: flash/xla or SlotServer/Engine disagree")
 
 
-def phase_times(errs, launches):
+def sdpa(q, k, v, window):
+    """The one PyTorch call that computes K3's function on (B, S, H, d)
+    inputs: ``scaled_dot_product_attention`` on (B, H, S, d) copies, causal;
+    with GQA or a window, ``enable_gqa`` and an explicit boolean mask (a
+    window has no ``is_causal`` form, so another backend serves it)."""
     import torch
     import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if not window and k.shape[2] == q.shape[2]:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window:
+        mask &= (i[:, None] - i[None, :]) < window
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def phase_times(errs, launches):
+    import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     rows = {}
-    timed = ("slot_prefill_s64", "engine_prefill", "long_prompt")
+    timed = ("slot_prefill_s64", "engine_prefill", "long_prompt", "gemma_window_4k")
     for name, b, s, h, hkv, d, window, dtype in main_path_cases() + EXTRA_CASES:
         if name not in timed:
             continue
         q, k, v = qkv(b, s, h, hkv, d, dtype, seed=7)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library = sdpa(q, k, v, window)
+        # The yardstick must compute K3's function.
+        lib_err = (library().transpose(1, 2).float()
+                   - fa.flash_attention_plain(q, k, v, window=window).float()).abs().max().item()
+        if lib_err > TOL[dtype]:
+            raise AssertionError(f"SDPA is off K3's plain version by {lib_err} on {name}")
         iters = 200 if s <= 256 else 20
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), iters)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, window=window), iters)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters)
+        lib_ms = cuda_ms(library, iters)
         bound_ms, bound_by = flash_bound(b, s, h, hkv, d, window, dtype)
         # Device time of one call from the profiler: at small shapes the
         # event-timed loops above are bound by the host's launch rate.
         device = device_times(
             kernel=lambda: fa.flash_attention(q, k, v, window=window),
             plain=lambda: fa.flash_attention_plain(q, k, v, window=window),
-            library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+            library=library)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           kernel_single_ms=single_ms(lambda: fa.flash_attention(q, k, v, window=window)),
-                          **device)
+                          library_max_abs_err=lib_err, **device)
         emit("time", kernel="flash_attention", case=name, shape=[b, s, h, hkv, d],
-             dtype=dtype, grid=[-(-s // fa.TILE_Q), b * h], **rows[name])
-    emit("k3_tiles", block_q=fa.TILE_Q, block_kv=fa.TILE_KV, threads=128,
-         smem_bytes_d128=fa.smem_bytes(128), smem_bytes_d64=fa.smem_bytes(64))
+             dtype=dtype, window=window, grid=[-(-s // fa.tiles(d, q.dtype)["block_q"]), b * h],
+             **rows[name])
+    emit("k3_tiles", **{f"{dt}_d{d}": fa.tiles(d, getattr(torch, dt))
+                        for dt in ("bfloat16", "float32") for d in fa.SUPPORTED_HEAD_DIMS})
     main = rows["slot_prefill_s64"]
     return [{"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1456,6 +1514,7 @@ def main():
                   for n, i in infos.items()})
     for name, info in infos.items():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
+    phase_k3_sass(infos["flash_attention"])
 
     errs = phase_parity()
     ssd_errs = phase_ssd_parity()

@@ -4,20 +4,28 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel
 and its wrapper ``repro/kernels/ops.py::flash_attention``; the plain version
 below replaces the oracle ``repro/kernels/ref.py::flash_attention_ref``.
 
-The CUDA kernel is ``csrc/flash_attention.cu`` (built by ``kernels.build``
-with nvcc for ``sm_90a`` and called through ``ctypes``).  It reads q, k, v in
-the model's (B, S, H, d) layout, so there is no transpose and no padding
+The CUDA kernels are in ``csrc/flash_attention.cu`` (built by ``kernels.build``
+with nvcc for ``sm_90a`` and called through ``ctypes``).  They read q, k, v
+in the model's (B, S, H, d) layout, so there is no transpose and no padding
 copy: the ragged sequence edge is masked by the real length.
 
 What bounds it on an H100: at the serving path's shapes (B <= 4, S = 64,
-H = 32, d = 128) the work is a few MFLOP over about 2 MB, so the least time
-is the bytes (~0.6 us at 3.35 TB/s) and the launch itself dominates; the grid
-is S/64 * B*H blocks (32 at B=1) on 132 SMs.  At long prompts the work is
-bound by operations, and this first version computes on the CUDA cores in
-fp32 (no tensor cores, TMA or pipelining), far below the bf16 roofline.  Its
-design fixes the tiles at 64 x 64 so Q, K, V and the score tile fit one
-block's shared memory (113 KB at d = 128), and walks only the KV tiles that
-the causal frontier and the window let a q tile reach.
+H = 32, d = 128) the bytes (about 2 MB, ~0.6 us at 3.35 TB/s) and the
+latency of one short pass; at long prompts the operations (4 * H * d flops
+per attended pair, at the bf16 tensor-core peak).
+
+bf16, the serving path, runs on the tensor cores: one warpgroup computes
+S = Q K^T with ``wgmma`` on a 64-row q tile, keeps the online softmax in
+fp32 registers, and adds P V as two ``wgmma``s from registers, on
+P_hi = bf16(P) and P_lo = bf16(P - P_hi), so the output stays within one
+bf16 rounding of the fp32 computation; the next tile's softmax runs while
+P V is on the tensor cores.  A producer warp streams K and V through
+two-slot rings in shared memory with TMA and ``mbarrier``s.  The tiles
+are the kernel's own (``tiles``): 64 query rows, so a 64-token prompt
+wastes no rows, and 64 keys, so the fragments stay in registers.  fp32
+(the tests and the small fp32 reference, not the serving path) keeps the
+first port's CUDA-core kernel (64 x 64 tiles, fp32 FMAs): TF32 would miss
+the fp32 tolerance.  One launch counter counts both.
 """
 from __future__ import annotations
 
@@ -29,8 +37,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-TILE_Q = TILE_KV = 64                      # fixed in csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FITS = set()          # (device, dtype, d) whose shared memory was checked
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0):
@@ -63,10 +71,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_config.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_config.restype = ctypes.c_int
         lib.flash_attention_smem_limit.argtypes = [ctypes.c_int]
         lib.flash_attention_smem_limit.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -75,9 +84,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory one block of the CUDA kernel needs at head dim d."""
-    return _lib().flash_attention_smem_bytes(d)
+def tiles(d: int, dtype=torch.bfloat16) -> dict:
+    """The CUDA kernel's tiles at head dim d: query rows and keys per tile,
+    threads and K/V stages per block, and dynamic shared memory bytes."""
+    out = (ctypes.c_int * 5)()
+    if _lib().flash_attention_config(_DTYPE_CODES[dtype], d, out):
+        raise ValueError(f"no flash_attention kernel for head dim {d}")
+    return dict(zip(("block_q", "block_kv", "threads", "stages", "smem_bytes"), out))
+
+
+def _check_fits(device: int, dtype, d: int) -> None:
+    """Once per (device, dtype, d): the block's shared memory fits the device."""
+    key = (device, dtype, d)
+    if key in _FITS:
+        return
+    need = tiles(d, dtype)["smem_bytes"]
+    limit = _lib().flash_attention_smem_limit(device)
+    if need > limit:
+        raise RuntimeError(f"flash_attention needs {need} B of shared memory per "
+                           f"block at d={d}; the device allows {limit} B")
+    _FITS.add(key)
 
 
 def _check(q, k, v, window):
@@ -100,6 +126,8 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention wants contiguous q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v lie on different devices")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention wants q, k, v on 16-byte boundaries (TMA)")
     if b * h > 65535:
         raise ValueError(f"B*H={b * h} exceeds the grid's 65535 rows")
 
@@ -110,8 +138,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
     A CPU tensor goes through ``flash_attention_plain``.  A CUDA tensor
     launches the CUDA kernel or raises.  ``block_q``/``block_kv`` are the
     reference wrapper's tile knobs, accepted for parity; the CUDA kernel uses
-    its own fixed 64 x 64 tiles (``TILE_Q``/``TILE_KV``), which fit a Hopper
-    block's shared memory.
+    its own tiles per head dim (``tiles``), which fit a Hopper block's
+    shared memory and registers.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -119,19 +147,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, window)
     b, s, h, d = q.shape
-    lib = _lib()
-    need = lib.flash_attention_smem_bytes(d)
-    limit = lib.flash_attention_smem_limit(q.device.index or 0)
-    if need <= 0 or need > limit:
-        raise RuntimeError(f"flash_attention needs {need} B of shared memory per "
-                           f"block at d={d}; the device allows {limit} B")
+    dev = q.device.index
+    _check_fits(dev, q.dtype, d)
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
-            int(window), d ** -0.5, stream)
+    lib = _lib()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
+        int(window), d ** -0.5, dev, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: cudaError {err} ({msg})")
@@ -139,4 +162,4 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
     return o
 
 
-flash_attention.launches = 0   # launches of the CUDA kernel in this process
+flash_attention.launches = 0   # launches of the CUDA kernels in this process

@@ -8,7 +8,9 @@ tests/test_torch_cuda_kernels.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2;
 a bf16 output is also held against the plain version in fp32 at one bf16
-rounding (atol 1e-4, rtol 2**-8).  K4 (the SSD scan): fp32 at 1e-4
+rounding (atol 1e-4, rtol 2**-8).  K3's bf16 path (tensor cores, TMA) is
+also run across its tile and ring edges and twice on the same inputs,
+which must agree bitwise.  K4 (the SSD scan): fp32 at 1e-4
 (``tests/test_kernels.py``'s ``ssd`` tolerance); a bf16 y at 2e-2 and its
 fp32 final state at 1e-4 (both versions compute in fp32 from the same bf16
 inputs).  K5 (top-k gating): ids equal, ties included, and probabilities
@@ -69,6 +71,38 @@ def test_kernel_matches_plain(cuda, s, h, hkv, d, window, dtype):
         torch.testing.assert_close(got.float(), want32, atol=1e-4, rtol=2 ** -8)
 
 
+@pytest.mark.parametrize("b,s,h,hkv,d,window,causal", [
+    # the bf16 kernel's 64-row q tiles and 64-key K/V tiles (d = 128), and
+    # its two-stage ring (S = 1000: 16 K/V tiles)
+    (1, 63, 4, 4, 128, 0, True), (1, 64, 4, 4, 128, 0, True), (1, 65, 4, 4, 128, 0, True),
+    (1, 127, 4, 4, 128, 0, True), (1, 128, 4, 4, 128, 0, True), (1, 129, 4, 4, 128, 0, True),
+    (1, 1000, 4, 4, 128, 0, True),
+    (2, 200, 32, 8, 128, 0, True),       # GQA 32/8
+    (1, 1000, 4, 2, 128, 256, True),     # a window whose lower edge falls mid-tile
+    (1, 200, 4, 4, 128, 0, False),       # no causal mask: every tile to S
+    (2, 300, 4, 2, 16, 0, True),         # 128-key tiles, 32-byte swizzle
+    (2, 300, 4, 2, 32, 40, True),        # 128-key tiles, 64-byte swizzle
+    (2, 300, 4, 4, 64, 0, True),         # one 128-byte column chunk
+])
+def test_bf16_tensor_core_kernel_across_tile_edges(cuda, b, s, h, hkv, d, window, causal):
+    q, k, v = _qkv(cuda, b, s, h, hkv, d, torch.bfloat16, seed=s + d)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=causal, window=window)
+    torch.testing.assert_close(got, want32, atol=1e-4, rtol=2 ** -8)
+
+
+def test_bf16_kernel_repeats_bitwise(cuda):
+    q, k, v = _qkv(cuda, 2, 300, 8, 2, 128, torch.bfloat16, seed=5)
+    first = fa.flash_attention(q, k, v, window=100)
+    again = fa.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 def test_kernel_noncausal(cuda):
     q, k, v = _qkv(cuda, 1, 80, 4, 4, 64, torch.float32, seed=1)
     got = fa.flash_attention(q, k, v, causal=False)
@@ -88,6 +122,10 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fa.flash_attention(q, k, v, window=-1)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    # TMA reads from 16-byte boundaries only
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(off, k.bfloat16(), v.bfloat16())
 
 
 def test_flash_prefill_matches_xla_on_card(cuda):
