@@ -12,7 +12,9 @@ failed check and then prints no result):
    started together, with the ``-Xptxas -v`` resource report; each K3
    instantiation's tensor-core (``HGMMA``) and TMA (``UTMALDG``)
    instructions counted in its SASS (``cuobjdump -sass``): every bf16 one
-   must have both;
+   must have both; gp_sass: the float64 tensor-core (``DMMA``)
+   instructions of each gp_ops kernel, which both fold products (K1a's and
+   K1b's ``gp_fold_kernel``) must have;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
@@ -48,12 +50,16 @@ failed check and then prints no result):
    recorded, and they are replayed through its plain version; the drift
    gate (root-mean-square) on a 4-layer full-width copy;
 7. gp_parity: K1a, K1b and K2 against their plain versions in float64 on
-   real GP states (cap 64 and 8192, n on a tile edge, just past one and
-   6250, B = 1, 7 -> 8 and 512, isotropic and ARD; P = 512 with staircases
-   of S = 2 and S = 129): w, g and the new rows of L and L⁻¹ (``gp_append``
+   real GP states (cap 64, 1024 and 8192; n = 0, on a 16-row edge, one
+   before, on and one past the fold's 128-row tile edge, and 6250; B = 1,
+   8 and 16 on both sides of the tell/fold switch, 32, 64, 128 and 512,
+   cap below one tile; isotropic and ARD; P = 512 with staircases of S = 2
+   and S = 129): w, g and the new rows of L and L⁻¹ (``gp_append``
    against the torch tier's dense append) within 1e-10 · max(1, max|ref|),
    EHVI within 1e-8; each kernel launched twice on the same inputs must
-   give bitwise-equal outputs;
+   give bitwise-equal outputs, and K1b must read only the rows < n of w;
+   each case reports the form, tiles and grids the wrapper picked
+   (``gp_ops.tiles``);
 8. search_small: BayesOpt (ehvi, parego) and PAL with ``gp_mode="cuda"``
    make the same picks as ``gp_mode="incremental"`` (numpy, on the host) on
    ``tpu_pod_space(n_chips=256)`` fed 1,000 observations and 30 ask/tell
@@ -63,12 +69,15 @@ failed check and then prints no result):
    size of the reference's ``bign_ask_curve``, for ``gp_mode="cuda"`` and
    then ``"torch"`` on the identical feed; the GP kernels' launch counts are
    reset just before the cuda run and read just after, and must equal the
-   GP's ``cuda_appends``/``cuda_scores``; every timed ask's EHVI scores,
+   GP's ``cuda_appends``/``cuda_scores`` (K1a's and K1b's also split by
+   form, fold and tell, each non-zero); every timed ask's EHVI scores,
    and the posterior means of each checkpoint's last timed pool, agree
    between the tiers within 1e-8; tell+ask ms, active set, capacity,
    device memory and where a cycle's time goes are printed;
 10. times: CUDA-event times of each kernel, its plain version and the
-   library call that computes the same function (where one does; for K3
+   library call that computes the same function (where one does: K1b's
+   ``torch.matmul(w.T, lib)``; beside K1a, as context, ``torch.matmul(lib,
+   k12)`` on a precomputed K12; for K3
    ``scaled_dot_product_attention``, causal, or with ``enable_gqa`` and a
    boolean window mask where there is a window), as a loop
    of launches, as one launch between synchronisations and as the
@@ -254,6 +263,48 @@ def phase_k3_sass(info):
         raise AssertionError(f"K3 bf16 instantiations without HGMMA or UTMALDG: {lacking}")
 
 
+def gp_kernel_name(mangled):
+    """``gp_fold_kernel<true>`` from an Itanium-mangled gp_ops kernel name:
+    the identifier is the ``gp_...`` run whose decimal length prefix ends
+    just before it (the digits before may join a hex namespace tag)."""
+    import re
+
+    for m in re.finditer(r"(\d+)(gp_\w*)", mangled):
+        digits, rest = m[1], m[2]
+        for k in range(1, len(digits) + 1):
+            name = rest[:int(digits[-k:])]
+            if name.endswith("_kernel"):
+                arg = re.match(r"IL([bi])(\d+)EE", rest[len(name):])
+                if arg is None:
+                    return name
+                value = {"0": "false", "1": "true"}[arg[2]] if arg[1] == "b" else arg[2]
+                return f"{name}<{value}>"
+    return mangled
+
+
+def phase_gp_sass(info):
+    """Float64 tensor-core (DMMA) instructions in each gp_ops kernel's SASS,
+    by ``cuobjdump`` beside ``nvcc``; both fold products must have them."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(info.path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = gp_kernel_name(line.split("Function :")[1].strip())
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bDMMA", line):
+            counts[cur] += 1
+    emit("gp_sass", dmma=counts)
+    folds = [k for k in counts if k.startswith("gp_fold_kernel<")]
+    if len(folds) != 2 or min(counts[k] for k in folds) == 0:
+        raise AssertionError(f"the fold products lack DMMA instructions: {counts}")
+
+
 def phase_parity():
     """K3 against its plain version on every case: at TOL (the plain version
     forms bf16 logits as the reference oracle does), and for bf16 also
@@ -425,8 +476,9 @@ def profile(fn, calls=1, top=6):
 def device_times(**fns):
     """``{key}_device_ms`` (profiler kernel time per call, over 10 calls) and
     ``{key}_kernels_per_call`` (kernel events recorded per call) for each
-    function: a wrapper launches one kernel per call, so a count below 1
-    says the trace dropped launches and the time per call reads low."""
+    function: a count below the kernels the call launches (one for most
+    wrappers; K1a three at a fold and two at a tell, K1b two) says the
+    trace dropped launches and the time per call reads low."""
     out = {}
     for key, fn in fns.items():
         p = profile(fn, calls=10)
@@ -1027,15 +1079,27 @@ EHVI_TOL = 1e-8               # absolute, as tests/test_gp_pallas.py
 SEARCH_D = 14                 # tpu_pod_space(n_chips=256) has 14 knobs
 SEARCH_CAP, SEARCH_N = 8192, 6250   # pow2 capacity and largest active set
 # (name, cap, n, m, d, ard) of the append cases: n on a tile edge, just past
-# one and at the search path's active set; B = 1, 7 -> 8 and 512
+# one and at the search path's active set; B = 1, 7 -> 8 and 512; at the
+# fold's 128-row tiles n one before, on and one past an edge, B on both
+# sides of the tell/fold switch (8 | 16), cap below one tile, and n = 0
 GP_APPEND_CASES = [
     ("cap64_first", 64, 0, 7, SEARCH_D, False),
     ("cap64_edge", 64, 48, 7, SEARCH_D, False),
     ("cap64_past_edge_ard", 64, 17, 16, SEARCH_D, True),
+    ("cap64_fold_b32", 64, 20, 32, SEARCH_D, False),
+    ("cap64_n0_b64", 64, 0, 64, SEARCH_D, False),
     ("edge_b512", SEARCH_CAP, 6144, 512, SEARCH_D, False),
     ("past_edge_b8_ard", SEARCH_CAP, 6145, 7, SEARCH_D, True),
     ("active_b1", SEARCH_CAP, SEARCH_N, 1, SEARCH_D, False),
     ("active_b512_ard", SEARCH_CAP, SEARCH_N, 512, SEARCH_D, True),
+    ("tile_before_b16", 1024, 127, 9, SEARCH_D, False),
+    ("tile_on_b8", 1024, 128, 8, SEARCH_D, False),
+    ("tile_past_b16_ard", 1024, 129, 16, SEARCH_D, True),
+    ("tile_on_b512", 1024, 128, 512, SEARCH_D, False),
+    ("tile_past_b1", 1024, 129, 1, SEARCH_D, False),
+    ("odd_tiles_b512", 1024, 384, 512, SEARCH_D, False),
+    ("n0_b512", 1024, 0, 512, SEARCH_D, False),
+    ("n0_b1", SEARCH_CAP, 0, 1, SEARCH_D, False),
 ]
 # (name, cap, n, P, d, front points, ard) of the EHVI cases: S = pow2 + 1
 GP_EHVI_CASES = [
@@ -1156,12 +1220,16 @@ def phase_gp_parity():
         err_li = abs_rel(bufs[2][n:n + B], dense[2][n:n + B])
         zero = all(not t[n + m:].any() and not t[:, n + m:].any() for t in bufs[1:])
         repeat = bool(torch.equal(w, w2) and torch.equal(g, g2))
+        tail = w.clone()
+        tail[n:] = float("nan")          # K1b reads only the rows < n of w
+        rows_below_n = bool(torch.equal(gp_ops.gp_g(tail, lib, n), g))
         rel = max(err_w[1], err_g[1], err_l[1], err_li[1])
-        passed = ok and ok_dense and zero and repeat and rel <= GP_REL_TOL
+        passed = ok and ok_dense and zero and repeat and rows_below_n and rel <= GP_REL_TOL
         emit("gp_parity", kernel="gp_append", case=name, cap=cap, n=n, m=m, B=B, d=d,
-             ard=ard, grid_w=[-(-cap // 64), -(-B // 64)], w_err=err_w, g_err=err_g,
+             ard=ard, tiles=gp_ops.tiles(B, cap, n), w_err=err_w, g_err=err_g,
              l_rows_err=err_l, lib_rows_err=err_li, tol_rel=GP_REL_TOL, ok_flag=ok,
-             ok_flag_dense=ok_dense, zero_invariant=zero, bitwise_repeat=repeat, ok=passed)
+             ok_flag_dense=ok_dense, zero_invariant=zero, bitwise_repeat=repeat,
+             g_reads_rows_below_n=rows_below_n, ok=passed)
         if not passed:
             raise AssertionError(f"gp_append case {name} disagrees with its plain version")
         errs["gp_w"] = max(errs["gp_w"], err_w[0])
@@ -1339,10 +1407,13 @@ def phase_search_main():
     kernels = (gp_ops.gp_w, gp_ops.gp_g, gp_ops.gp_ehvi)
     for k in kernels:
         k.launches = 0
+    for k in kernels[:2]:
+        k.launches_by_form = dict.fromkeys(k.launches_by_form, 0)
     t0 = time.perf_counter()
     cuda_out, cuda_prof, cuda_stats, cuda_picks, cuda_scores = run_search_tier("cuda")
     cuda_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    by_form = {k.__name__: dict(k.launches_by_form) for k in kernels[:2]}
     # ---- end of the GP path's counted run
     want = {"gp_w": cuda_stats["cuda_appends"], "gp_g": cuda_stats["cuda_appends"],
             "gp_ehvi": cuda_stats["cuda_scores"]}
@@ -1364,7 +1435,8 @@ def phase_search_main():
             emit("search_main", checkpoint=ck, gp_mode=mode, **out[ck])
     emit("search_main_profile", checkpoint=MAIN_CHECKPOINTS[-1], cycles=PROFILE_CYCLES,
          cuda=cuda_prof, torch=torch_prof)
-    emit("search_main", launches=launches, expected=want, launches_after_torch_run=after,
+    emit("search_main", launches=launches, launches_by_form=by_form, expected=want,
+         launches_after_torch_run=after,
          cuda_stats=cuda_stats, torch_stats=torch_stats, timed_asks=len(cuda_scores),
          max_ehvi_diff=score_err, positive_scores=positive, max_mean_diff=mean_err,
          ehvi_tol=EHVI_TOL, identical_pick_share=same,
@@ -1374,6 +1446,9 @@ def phase_search_main():
                              f"{after}) do not match the GP's counters {want}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a GP kernel was not launched on the search path: {launches}")
+    if any(sum(f.values()) != launches[k] or min(f.values()) == 0 for k, f in by_form.items()):
+        raise AssertionError(f"K1a/K1b launches by form {by_form} do not add up to "
+                             f"{launches} or miss a form")
     if score_err > EHVI_TOL or mean_err > EHVI_TOL:
         raise AssertionError(f"cuda and torch EHVI scores differ by {score_err}, "
                              f"posterior means by {mean_err}")
@@ -1414,6 +1489,11 @@ def phase_gp_times(errs, launches):
     for m in (512, 1):
         ls, xb, lb, lib, xnew, ls2, _, xs, xq = gp_state(cap, n, m, d, False, GP_SEED)
         w = gp_ops.gp_w(lib, xs, xq, n, m, ls2=ls2, signal=1.0)
+        # K1a's product alone as one library call on a precomputed K12:
+        # context, not a yardstick (building K12 is a second call)
+        k12 = gp_ops.tile_kern(xs, xq, ls2, 1.0)
+        k12[n:] = 0.0
+        k12[:, m:] = 0.0
         iters = 20 if m > 1 else 100
         fns = {
             "gp_w": (lambda: gp_ops.gp_w(lib, xs, xq, n, m, ls2=ls2, signal=1.0),
@@ -1428,9 +1508,15 @@ def phase_gp_times(errs, launches):
                        bound_ms=bound_ms, bound_by=bound_by,
                        kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
                        **device_times(kernel=kernel, plain=plain))
+            # the kernels one call launches (K12, product, fix-up), by name:
+            # profiler device time per call and events recorded per call
+            row["kernel_by_name"] = [{k: r[k] for k in ("name", "ms", "calls")}
+                                     for r in profile(kernel, calls=10)["top"]]
+            if name == "gp_w":
+                row["context_matmul_lib_k12_ms"] = cuda_ms(lambda: torch.matmul(lib, k12), iters)
             rows[(name, m)] = row
             emit("time", kernel=name, cap=cap, n=n, B=xnew.shape[0], d=d,
-                 grid=[-(-cap // 64), -(-xnew.shape[0] // 64)], **row)
+                 tiles=gp_ops.tiles(xnew.shape[0], cap, n), **row)
         # whole appends, each tier on its own copy of the state; rows >= n
         # are zeroed after every call so each call appends to the same state
         tiers = {}
@@ -1448,7 +1534,7 @@ def phase_gp_times(errs, launches):
             del bufs
         emit("time", step="append", cap=cap, n=n, B=xnew.shape[0], d=d, **tiers)
         rows[("append", m)] = tiers
-        del xb, lb, lib, w
+        del xb, lb, lib, w, k12
         torch.cuda.empty_cache()
 
     c = ehvi_case(cap, n, 512, d, 12, False, GP_SEED)
@@ -1475,9 +1561,11 @@ def phase_gp_times(errs, launches):
     emit("time", kernel="gp_ehvi", cap=cap, n=n, P=512, d=d, S=c["S"],
          grid=[512 // 4], **rows[("gp_ehvi", 512)])
 
-    emit("gp_tiles", tile=[64, 64], contraction_step=16, threads=256,
-         ehvi_warps_per_block=4, smem_bytes_d14={k: gp_ops.smem_bytes(k, d)
-                                                 for k in ("gp_w", "gp_g", "gp_ehvi")})
+    emit("gp_tiles", fold=gp_ops.tiles(512, cap, n), tell=gp_ops.tiles(1, cap, n),
+         ehvi_warps_per_block=4,
+         smem_bytes_d14={"gp_w_tell": gp_ops.smem_bytes("gp_w", d),
+                         "gp_w_fold": gp_ops.smem_bytes("gp_w", d, fold=True),
+                         "gp_ehvi": gp_ops.smem_bytes("gp_ehvi", d)})
     out = []
     for name, line, width in (("gp_w", 76, 512), ("gp_g", 111, 512), ("gp_ehvi", 224, 512)):
         r = rows[(name, width)]
@@ -1515,6 +1603,7 @@ def main():
     for name, info in infos.items():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
     phase_k3_sass(infos["flash_attention"])
+    phase_gp_sass(infos["gp_ops"])
 
     errs = phase_parity()
     ssd_errs = phase_ssd_parity()

@@ -175,6 +175,19 @@ def _rel(got, want):
     (8192, 6144, 512, 14, False),   # a 64-row edge, B = 512
     (8192, 6145, 7, 14, True),      # just past one, ARD
     (8192, 6250, 1, 14, False),     # the search path's active set, B = 1
+    # the fold's 128-row tiles and the tell/fold switch (B = 8 | 16)
+    (1024, 127, 9, 14, False),      # one before a tile edge, B = 16 (fold)
+    (1024, 128, 8, 14, False),      # on the edge, B = 8 (tell)
+    (1024, 129, 16, 14, True),      # one past it, B = 16, ARD
+    (1024, 128, 512, 14, False),    # on the edge, B = 512
+    (1024, 129, 1, 14, False),      # one past it, B = 1
+    (1024, 255, 100, 14, False),    # one before the second edge, B = 128
+    (1024, 257, 5, 14, False),      # one past it, B = 8
+    (1024, 384, 512, 14, True),     # an odd count of active tiles (3), B = 512
+    (64, 20, 32, 14, False),        # cap below one tile, B = 32 (fold)
+    (64, 0, 64, 14, False),         # n = 0 and cap below one tile, B = 64
+    (1024, 0, 512, 14, False),      # n = 0, B = 512: zero tiles only
+    (1024, 0, 1, 14, False),        # n = 0, B = 1
 ])
 def test_gp_append_kernels_match_plain(cuda, cap, n, m, d, ard):
     from repro_torch.core.search import gp_torch
@@ -197,6 +210,9 @@ def test_gp_append_kernels_match_plain(cuda, cap, n, m, d, ard):
     assert torch.equal(w, w2) and torch.equal(g, g2)       # bitwise repeatable
     assert _rel(w, gp_ops.gp_w_plain(lib, xs, xq, n, m, ls2=ls2, signal=1.0)) <= 1e-10
     assert _rel(g, gp_ops.gp_g_plain(w, lib, n)) <= 1e-10
+    tail = w.clone()
+    tail[n:] = float("nan")      # K1b reads only the rows < n of w
+    assert torch.equal(gp_ops.gp_g(tail, lib, n), g)
     # the whole append (K1a, Schur block, K1b, slab writes) against the
     # torch tier's dense full-capacity append on copies of the same state
     bufs = [xb.clone(), lb.clone(), lib.clone()]
@@ -208,6 +224,26 @@ def test_gp_append_kernels_match_plain(cuda, cap, n, m, d, ard):
     for got, want in zip(bufs[1:], dense[1:]):
         assert _rel(got[n:n + B], want[n:n + B]) <= 1e-10
         assert not got[n + m:].any() and not got[:, n + m:].any()
+
+
+def test_gp_append_wrappers_raise_on_what_the_forms_do_not_take(cuda):
+    from repro_torch.kernels import gp_ops
+
+    ls, xb, lb, lib, xnew = _gp_case(cuda, 64, 20, 3, 14, False, seed=5)
+    xq = xnew[:3].contiguous()        # B = 3: neither a tell (1, 2, 4, 8) nor a fold (16k)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gp_ops.gp_w(lib, xb, xq, 20, 3, ls2=0.09, signal=1.0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gp_ops.gp_g(torch.zeros((64, 3), dtype=torch.float64, device=cuda), lib, 20)
+    odd = torch.zeros((40, 40), dtype=torch.float64, device=cuda)   # cap 40
+    with pytest.raises(ValueError, match="capacity"):
+        gp_ops.gp_g(torch.zeros((40, 4), dtype=torch.float64, device=cuda), odd, 20)
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.float64, device=cuda)
+    shifted = flat[1:].view(64, 64)   # contiguous, 8 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        gp_ops.gp_w(shifted, xb, xnew, 20, 3, ls2=0.09, signal=1.0)
+    with pytest.raises(ValueError, match="float64"):
+        gp_ops.gp_g(torch.zeros((64, 4), dtype=torch.float32, device=cuda), lib, 20)
 
 
 @pytest.mark.parametrize("cap,n,P,d,n_front,ard", [
