@@ -14,7 +14,10 @@ failed check and then prints no result):
    instructions counted in its SASS (``cuobjdump -sass``): every bf16 one
    must have both; gp_sass: the float64 tensor-core (``DMMA``)
    instructions of each gp_ops kernel, which both fold products (K1a's and
-   K1b's ``gp_fold_kernel``) must have;
+   K1b's ``gp_fold_kernel``) and K2's partial pass must have, K2's two
+   kernels' registers and spills (``-Xptxas -v``; none may spill), and the
+   float64 instructions of one ``exp()`` in a probe built beside the
+   kernels (``PROBE_SOURCE``), which K2's bound charges per pair;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
@@ -54,7 +57,9 @@ failed check and then prints no result):
    before, on and one past the fold's 128-row tile edge, and 6250; B = 1,
    8 and 16 on both sides of the tell/fold switch, 32, 64, 128 and 512,
    cap below one tile; isotropic and ARD; P = 512 with staircases of S = 2
-   and S = 129): w, g and the new rows of L and L⁻¹ (``gp_append``
+   and S = 129; K2 also at n = 0, 1 and one below, on and one past a
+   64-row step edge, P = 1, 511 and 513): w, g and the new rows of L and
+   L⁻¹ (``gp_append``
    against the torch tier's dense append) within 1e-10 · max(1, max|ref|),
    EHVI within 1e-8; each kernel launched twice on the same inputs must
    give bitwise-equal outputs, and K1b must read only the rows < n of w;
@@ -83,7 +88,11 @@ failed check and then prints no result):
    of launches, as one launch between synchronisations and as the
    profiler's device time, beside the least time the card could take (bytes
    over 3.35 TB/s or operations over the dtype's peak, whichever is larger),
-   and the serving times of all three paths.
+   and the serving times of all three paths; K2's line gives its grid
+   (candidate tiles × row splits) and the profiler's time per kernel by
+   name; ``topk_host_path`` times K5's call path piece by piece beside an
+   empty kernel launched through ctypes (the launch floor), and K4's line
+   its host enqueue time per call.
 
 Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +113,7 @@ HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 # dense peaks from NVIDIA's H100 SXM data sheet: fp32 off the tensor cores,
 # fp64 on them (DMMA; 34 TFLOP/s on the CUDA cores)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 67e12}
+F64_CUDA_CORE_FLOPS = 34e12    # float64 off the tensor cores: a DFMA issue is 2 flop
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # A bf16 kernel output against the plain version run in fp32 on the same
 # (bf16-valued) inputs: one bf16 rounding of the output (at most 2**-8 of
@@ -236,6 +246,100 @@ EXTRA_CASES = [
 ]
 
 
+# Two probes, built beside the kernels with the same flags: the float64
+# exp() sequence, whose SASS is counted for K2's bound, and an empty kernel
+# launched through the same kind of C entry point as the port's kernels
+# (the launch floor of a ctypes call).
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+extern "C" __global__ void exp_probe(const double* x, double* y) {
+  y[threadIdx.x] = exp(x[threadIdx.x]);
+}
+__global__ void empty_probe() {}
+extern "C" int probe_empty(int device, void* stream) {
+  int cur = 0;
+  int err = (int)cudaGetDevice(&cur);
+  if (err) return err;
+  if (cur != device && (err = (int)cudaSetDevice(device))) return err;
+  empty_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  err = (int)cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return err;
+}
+"""
+
+
+def start_probe_build():
+    """Start nvcc on PROBE_SOURCE into the kernels' build directory; returns
+    (process, library path)."""
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "chip_smoke_probe.cu"
+    src.write_text(PROBE_SOURCE)
+    out = build.BUILD_DIR / "chip_smoke_probe.so"
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def finish_probe_build(started):
+    proc, out = started
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"probe build failed: nvcc exited {proc.returncode}\n{stdout}{stderr}")
+    return out
+
+
+def sass_of(path):
+    from repro_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def exp_f64_instructions(probe):
+    """Float64 instructions (DFMA, DADD, DMUL, DSETP) of ``exp_probe``: up
+    to its first EXIT (the path an argument in range takes) and in all."""
+    import re
+
+    fast = total = 0
+    inside = ended = False
+    for line in sass_of(probe).splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip() == "exp_probe"
+            continue
+        if not inside:
+            continue
+        if re.search(r"\b(DFMA|DADD|DMUL|DSETP)\b", line):
+            total += 1
+            fast += not ended
+        if re.search(r"\bEXIT\b", line):
+            ended = True
+    return {"fast_path": fast, "all": total}
+
+
+def ptxas_resources(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    ``-Xptxas -v`` report, kernel names as ``gp_kernel_name`` gives them."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(gp_kernel_name(m[1]), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
+
+
 def phase_k3_sass(info):
     """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in each K3
     instantiation's SASS, by ``cuobjdump`` beside ``nvcc``; every bf16
@@ -282,27 +386,35 @@ def gp_kernel_name(mangled):
     return mangled
 
 
-def phase_gp_sass(info):
+def phase_gp_sass(info, probe):
     """Float64 tensor-core (DMMA) instructions in each gp_ops kernel's SASS,
-    by ``cuobjdump`` beside ``nvcc``; both fold products must have them."""
+    by ``cuobjdump`` beside ``nvcc``; both fold products and K2's partial
+    pass must have them.  K2's two kernels' registers and spills (``-Xptxas -v``): none may
+    spill.  Returns the float64 instructions of one exp() (the probe)."""
     import re
 
-    from repro_torch.kernels import build
-
-    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(info.path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     counts, cur = {}, None
-    for line in sass.splitlines():
+    for line in sass_of(info.path).splitlines():
         if "Function :" in line:
             cur = gp_kernel_name(line.split("Function :")[1].strip())
             counts[cur] = 0
         elif cur is not None and re.search(r"\bDMMA", line):
             counts[cur] += 1
-    emit("gp_sass", dmma=counts)
+    res = ptxas_resources(info.log)
+    k2 = {k: res.get(k) for k in ("gp_ehvi_partial_kernel", "gp_ehvi_sweep_kernel")}
+    exp_f64 = exp_f64_instructions(probe)
+    emit("gp_sass", dmma=counts, k2_resources=k2, exp_f64_instructions=exp_f64)
     folds = [k for k in counts if k.startswith("gp_fold_kernel<")]
     if len(folds) != 2 or min(counts[k] for k in folds) == 0:
         raise AssertionError(f"the fold products lack DMMA instructions: {counts}")
+    if not counts.get("gp_ehvi_partial_kernel"):
+        raise AssertionError(f"K2's contraction lacks DMMA instructions: {counts}")
+    if any(r is None or "registers" not in r or r.get("spill_stores") != 0
+           or r.get("spill_loads") != 0 for r in k2.values()):
+        raise AssertionError(f"K2's kernels spill or were not reported: {k2}")
+    if exp_f64["fast_path"] == 0:
+        raise AssertionError(f"no float64 instructions counted in exp(): {exp_f64}")
+    return exp_f64["fast_path"]
 
 
 def phase_parity():
@@ -445,7 +557,9 @@ def phase_main_path(n_layers, seed):
 
 def profile(fn, calls=1, top=6):
     """Device kernel time per call of ``fn`` over ``calls`` calls, summed and
-    by kernel name.
+    by kernel name, and each kernel's time per recorded event (the trace
+    may drop events of a kernel that launched once per call: §7 of
+    PERF.md).
 
     Only the device-side kernel events are summed (the CPU-side operator
     events also carry the device time of the kernels they launch)."""
@@ -469,7 +583,8 @@ def profile(fn, calls=1, top=6):
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     return {"device_busy_ms": sum(ms for ms, _ in by_name.values()),
             "n_kernels": sum(n for _, n in by_name.values()) / calls,
-            "top": [{"name": name[:72], "ms": ms, "calls": n / calls}
+            "top": [{"name": name[:72], "ms": ms, "calls": n / calls,
+                     "ms_per_event": ms * calls / n}
                     for name, (ms, n) in ranked[:top]]}
 
 
@@ -1001,10 +1116,107 @@ def topk_bound(t, e, k):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches):
+def host_us(fn, calls=10_000):
+    """Host time per call of ``fn`` over ``calls`` calls, in µs
+    (``perf_counter_ns``; the card synchronised only before and after the
+    loop)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls / 1e3
+
+
+def enqueue_us(fn, calls=200):
+    """Host time per call of ``fn`` while the card works behind it, in µs:
+    the loop is timed without a synchronisation at its end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter_ns() - t0) / calls / 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+def topk_host_path(probe, logits, k):
+    """K5's call path piece by piece at ``logits`` (µs per call over 10⁴
+    calls each): the wrapper's checks, one ``torch.empty`` (the earlier
+    wrapper made two), ``out_buffers`` and, beside it, one (2, T, k)
+    allocation with a view per plane, a ``torch.cuda.device`` context (the
+    earlier wrapper entered one), ``current_stream(...).cuda_stream`` and
+    the raw accessor, the ctypes call with its launch, and an empty kernel
+    launched through a ctypes call of the same kind (the launch floor).
+    Then the whole wrapper and the earlier wrapper's steps
+    (``earlier_path``) around the same entry point, in turns."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import topk_gating as k5
+
+    lib = k5._lib()
+    plib = ctypes.CDLL(str(probe))
+    plib.probe_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    plib.probe_empty.restype = ctypes.c_int
+    dev = logits.device
+    idx = dev.index
+    t, e = logits.shape
+    p, ids = k5.out_buffers(logits, k)
+    ptrs = (logits.data_ptr(), p.data_ptr(), ids.data_ptr())
+    stream = build.current_stream(idx)
+    if plib.probe_empty(idx, stream) or lib.topk_gating_fwd(*ptrs, t, e, k, idx, stream):
+        raise AssertionError("the probe or K5 did not launch")
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def one_allocation_views():
+        buf = torch.empty((2, t, k), dtype=torch.int32, device=dev)
+        return buf[0].view(torch.float32), buf[1]
+
+    def earlier_path():
+        k5._check(logits, k)
+        p2 = torch.empty((t, k), dtype=torch.float32, device=dev)
+        ids2 = torch.empty((t, k), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            s = torch.cuda.current_stream(dev).cuda_stream
+            lib.topk_gating_fwd(logits.data_ptr(), p2.data_ptr(), ids2.data_ptr(), t, e, k,
+                                idx, s)
+        return p2, ids2
+
+    out = {
+        "checks": host_us(lambda: k5._check(logits, k)),
+        "torch_empty": host_us(lambda: torch.empty((t, k), dtype=torch.float32, device=dev)),
+        "out_buffers": host_us(lambda: k5.out_buffers(logits, k)),
+        "one_allocation_views": host_us(one_allocation_views),
+        "device_context": host_us(device_context),
+        "current_stream_object": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "current_stream_raw": host_us(lambda: build.current_stream(idx)),
+        "ctypes_launch": host_us(lambda: lib.topk_gating_fwd(*ptrs, t, e, k, idx, stream)),
+        "empty_kernel_ctypes": host_us(lambda: plib.probe_empty(idx, stream)),
+    }
+    turns = {"earlier_path": [], "wrapper": []}
+    for key in ("earlier_path", "wrapper", "wrapper", "earlier_path"):
+        fn = earlier_path if key == "earlier_path" else (lambda: k5.topk_gating(logits, k))
+        turns[key].append(host_us(fn))
+    out.update({k: min(v) for k, v in turns.items()}, turns=turns)
+    return out
+
+
+def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
     """Times of K4 at the Engine's prefill and the 600-token slot prefill, and
     of K5 at the Engine's prefill (T = 256), beside their bounds and plain
-    versions; K5 also beside softmax + topk (two library calls)."""
+    versions; K5 also beside softmax + topk (two library calls) and its
+    call path piece by piece (``topk_host_path``)."""
     import torch
 
     from repro_torch.kernels import ssd_scan as k4
@@ -1026,6 +1238,7 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches):
         rows[name] = dict(ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 50), library_ms=None,
                           bound_ms=bound_ms, bound_by=bound_by,
                           kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
+                          host_enqueue_us=enqueue_us(kernel),
                           **device_times(kernel=kernel, plain=plain))
         emit("time", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q, dtype=dtype,
              grid=[b * h], smem_bytes=k4.smem_bytes(p, n, q), **rows[name])
@@ -1050,6 +1263,8 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches):
                         **device_times(kernel=kernel, plain=plain, softmax_topk=pair))
     emit("time", kernel="topk_gating", case=name, shape=[t, e, k],
          grid=[-(-t // 8)], **rows["topk"])
+    emit("topk_host_path", case=name, shape=[t, e, k], unit="us per call",
+         **topk_host_path(probe, logits, k))
     main = rows["engine_prefill"]
     return [{"name": "ssd_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1101,12 +1316,19 @@ GP_APPEND_CASES = [
     ("n0_b512", 1024, 0, 512, SEARCH_D, False),
     ("n0_b1", SEARCH_CAP, 0, 1, SEARCH_D, False),
 ]
-# (name, cap, n, P, d, front points, ard) of the EHVI cases: S = pow2 + 1
+# (name, cap, n, P, d, front points, ard) of the EHVI cases: S = pow2 + 1;
+# n = 0, 1 and one below, on and one past a 64-row step edge (where K2's
+# row splits are cut), P off and on its 64-candidate tiles
 GP_EHVI_CASES = [
     ("cap64_s2", 64, 40, 512, SEARCH_D, 1, False),
     ("search_s2", SEARCH_CAP, SEARCH_N, 512, SEARCH_D, 1, False),
     ("search_s17", SEARCH_CAP, SEARCH_N, 512, SEARCH_D, 12, False),
     ("search_s129_ard", SEARCH_CAP, SEARCH_N, 512, SEARCH_D, 100, True),
+    ("n0_p511", SEARCH_CAP, 0, 511, SEARCH_D, 12, False),
+    ("n1_p1", SEARCH_CAP, 1, 1, SEARCH_D, 1, False),
+    ("step_below_p513", SEARCH_CAP, 6143, 513, SEARCH_D, 12, False),
+    ("step_on_p511", SEARCH_CAP, 6144, 511, SEARCH_D, 12, False),
+    ("step_past_p1_ard", SEARCH_CAP, 6145, 1, SEARCH_D, 12, True),
 ]
 SMALL_FEED, SMALL_BLOCK, SMALL_CYCLES = 1000, 64, 30
 MAIN_CHECKPOINTS = (10_000, 100_000)
@@ -1455,13 +1677,16 @@ def phase_search_main():
     return launches
 
 
-def gp_bound(kernel, cap, n, width, d, S=0):
+def gp_bound(kernel, cap, n, width, d, S=0, exp_f64=0):
     """(bound_ms, bound_by): K1a/K1b read the active lower triangle of L⁻¹
-    and do 2 flop per (row, active column, B column) of it; K2 reads the
-    pool, the active rows and weights and the staircase, and does
-    P·n·(2d + 9) flop for the kernel row and the means (exp counted as one)
-    and 5 per (candidate, segment).  Bytes over 3.35 TB/s, operations over
-    the float64 peak."""
+    and do 2 flop per (row, active column, B column) of it.  K2 reads the
+    pool, the active rows and weights and the staircase; per (candidate,
+    row) pair it does the 2d-flop contraction, at the float64 tensor rate,
+    and on the CUDA cores one exp() (``exp_f64`` float64 instructions, as
+    counted in its SASS) and 7 more (the d² form 2, the clamp, the two
+    scalings, the two means' multiply-adds), each an issue of 2 flop at
+    34 TFLOP/s, plus 5 flop per (candidate, segment).  Bytes over
+    3.35 TB/s, operations over those peaks."""
     tri = n * (n + 1) // 2
     if kernel == "gp_w":
         nbytes, flops = 8 * (tri + n * d + width * d + cap * width), 2 * tri * width + n * width * (2 * d + 9)
@@ -1469,12 +1694,16 @@ def gp_bound(kernel, cap, n, width, d, S=0):
         nbytes, flops = 8 * (tri + n * width + width * cap), 2 * tri * width
     else:
         nbytes = 8 * (width * d + n * d + 2 * n + 3 * S + 4 + width)
-        flops = width * n * (2 * d + 9) + 5 * width * S
+        pairs = width * n
+        t_ops = (2 * d * pairs / PEAK_FLOPS["float64"]
+                 + (2 * (exp_f64 + 7) * pairs + 5 * width * S) / F64_CUDA_CORE_FLOPS)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float64"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_gp_times(errs, launches):
+def phase_gp_times(errs, launches, exp_f64):
     """Times of K1a, K1b and K2 at the search path's shapes (cap 8192,
     n = 6250, d = 14; B = 512 for a fold and 1 for a timed tell; P = 512),
     beside their plain versions, K1b's library product, and the torch
@@ -1510,7 +1739,7 @@ def phase_gp_times(errs, launches):
                        **device_times(kernel=kernel, plain=plain))
             # the kernels one call launches (K12, product, fix-up), by name:
             # profiler device time per call and events recorded per call
-            row["kernel_by_name"] = [{k: r[k] for k in ("name", "ms", "calls")}
+            row["kernel_by_name"] = [{k: r[k] for k in ("name", "ms", "calls", "ms_per_event")}
                                      for r in profile(kernel, calls=10)["top"]]
             if name == "gp_w":
                 row["context_matmul_lib_k12_ms"] = cuda_ms(lambda: torch.matmul(lib, k12), iters)
@@ -1552,17 +1781,22 @@ def phase_gp_times(errs, launches):
                               ym, ysd, c["ls"], 1.0)
     if (torch_tier() - kernel()).abs().max().item() > EHVI_TOL:
         raise AssertionError("K2 and the torch tier's EHVI disagree on the timing inputs")
-    bound_ms, bound_by = gp_bound("gp_ehvi", cap, n, 512, d, c["S"])
-    rows[("gp_ehvi", 512)] = dict(
+    bound_ms, bound_by = gp_bound("gp_ehvi", cap, n, 512, d, c["S"], exp_f64)
+    row = dict(
         ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 200), library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, torch_tier_ms=cuda_ms(torch_tier, 200),
         kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
         **device_times(kernel=kernel, plain=plain, torch_tier=torch_tier))
-    emit("time", kernel="gp_ehvi", cap=cap, n=n, P=512, d=d, S=c["S"],
-         grid=[512 // 4], **rows[("gp_ehvi", 512)])
+    row["kernel_by_name"] = [{k: r[k] for k in ("name", "ms", "calls", "ms_per_event")}
+                             for r in profile(kernel, calls=10)["top"]]
+    rows[("gp_ehvi", 512)] = row
+    tiles, runs = gp_ops.ehvi_split(n, 512, gp_ops.sm_count(torch.cuda.current_device()))
+    emit("time", kernel="gp_ehvi", cap=cap, n=n, P=512, d=d, S=c["S"], grid=[tiles, len(runs)],
+         splits=len(runs), rows_per_split=[hi - lo for lo, hi in runs[:2]],
+         exp_f64_instructions=exp_f64, **row)
 
     emit("gp_tiles", fold=gp_ops.tiles(512, cap, n), tell=gp_ops.tiles(1, cap, n),
-         ehvi_warps_per_block=4,
+         ehvi_grid=[tiles, len(runs)],
          smem_bytes_d14={"gp_w_tell": gp_ops.smem_bytes("gp_w", d),
                          "gp_w_fold": gp_ops.smem_bytes("gp_w", d, fold=True),
                          "gp_ehvi": gp_ops.smem_bytes("gp_ehvi", d)})
@@ -1595,15 +1829,17 @@ def main():
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
+    probe_build = start_probe_build()
     infos = build.build_all(["flash_attention", "gp_ops", "ssd_scan", "topk_gating"],
                             force=True)
+    probe = finish_probe_build(probe_build)
     emit("build", wall_seconds=time.perf_counter() - t0,
          kernels={n: {"seconds": i.seconds, "library": str(i.path.relative_to(REPO))}
                   for n, i in infos.items()})
     for name, info in infos.items():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
     phase_k3_sass(infos["flash_attention"])
-    phase_gp_sass(infos["gp_ops"])
+    exp_f64 = phase_gp_sass(infos["gp_ops"], probe)
 
     errs = phase_parity()
     ssd_errs = phase_ssd_parity()
@@ -1616,8 +1852,8 @@ def main():
     gp_errs = phase_gp_parity()
     phase_search_small()
     gp_launches = phase_search_main()
-    kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches)
-               + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches))
+    kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
+               + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

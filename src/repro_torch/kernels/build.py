@@ -7,6 +7,10 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is compiled when this module is imported: the first launch of a
 kernel builds it, or a caller builds several at once with ``build_all``,
 which starts one ``nvcc`` per source and waits for all of them.
+
+Every C entry point takes the device index and makes that device current
+itself, and the stream as a raw ``cudaStream_t`` (``current_stream``), so
+a wrapper's call is the ctypes call and nothing around it.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -92,3 +98,10 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def current_stream(device: int) -> int:
+    """PyTorch's current stream on CUDA device ``device`` as a raw
+    ``cudaStream_t``: ``torch.cuda.current_stream(device).cuda_stream``
+    without building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device)

@@ -62,12 +62,42 @@
 // * n, m and the tile counts are host integers passed by value: no device
 //   read, no sync.  float64 exp() throughout; build without --use_fast_math.
 //
-// K2 gives one warp to each pool candidate (4 per block): the lanes stride
-// over the training rows staged 128 at a time, and the staircase is read
-// from device memory in strides of 32, so its width S has no bound.  At
-// P = 512 it is ~1.2e8 flop plus 3.2 M exp over < 1 MB: the launch
-// dominates.  The staircase's first `lows` entry is -inf and
-// fmax(-inf, mu) is exact.
+// K2 (gp_ehvi) at the search path's size (P = 512, n = 6250, d = 14) is
+// P n = 3.2 M float64 exp()s beside 3.2 M x 2d flop of contraction, over
+// < 1 MB: operations bound it, mostly the exp() sequence (18 float64
+// instructions in its SASS) on the CUDA cores, a few microseconds (PERF.md
+// gives the bound).  Its earlier form (one warp per candidate, 4 warps per
+// block, ceil(P / 4) = 128 blocks) left each SM about 4 warps to walk all
+// n rows with one dependent dot product per lane, and every block
+// recomputed |x_j|^2 from device memory.  So it is two passes:
+// * gp_ehvi_partial_kernel, a 2-D grid of candidate tiles x row splits.
+//   Block (c, g) takes EHVI_TILE = 64 candidates and the contiguous rows
+//   of split g: the ceil(n / EHVI_STEP) steps of EHVI_STEP = 64 rows are
+//   cut into G equal runs, G = max(1, min(steps, ceil(2 SMs / tiles)))
+//   (gp_ops.ehvi_splits), so the grid holds at least two blocks per SM at
+//   the search shape (8 x 33 = 264 on 132 SMs; 16 or 66 splits were
+//   slower on the card).  Rows and alpha are staged through cp.async in a
+//   double buffer (the next step loads while this one computes);
+//   |x_j|^2 is computed once per staged step from shared memory, |q|^2
+//   once per candidate, 4 lanes a row.  The contraction runs on the
+//   float64 tensor cores (DMMA m16n8k4, d padded with zeros to a multiple
+//   of 4): each warp's 16 candidates x 32 rows are four tiles per 4-deep
+//   slice, and leave every lane 16 dot products (2 candidates x 8 rows),
+//   whose 16 exp()s are independent.  The same pass with the contraction
+//   on the CUDA cores (4 x 4 register patches) was slower on the card, the
+//   more so at larger d.  The 4 lanes of a candidate pair add their sums
+//   by a fixed butterfly, the two warps of a candidate tile in a fixed
+//   order through shared memory, and the block writes a (tile, 2) partial
+//   of mu.
+// * gp_ehvi_sweep_kernel, one warp per candidate: the G partials summed
+//   lane-strided and then by a fixed butterfly, denormalised, and swept
+//   through the staircase, read from device memory in strides of 32, so
+//   its width S has no bound.  The staircase's first `lows` entry is -inf
+//   and fmax(-inf, mu) is exact.
+// The exponent is d2 times -0.5 / ls2 computed once on the host (no
+// float64 division per pair): within one rounding of the plain version's
+// -0.5 d2 / ls2.  G comes from the wrapper (gp_ops.ehvi_splits); the row
+// runs are cut here from (n, G) alone.
 
 #include <cuda_runtime.h>
 
@@ -101,12 +131,23 @@ constexpr int PCOLS = 2 * TELL_THREADS;     // K1b: columns per block (a double2
 constexpr int K12_THREADS = 256;
 constexpr int K12_ROWS = 64;      // rows of K12 per block (FM is a multiple): 16 x 4
 constexpr int K12_COLS = 64;      // columns of K12 per block, at most: 16 x 4
-constexpr int WARPS = 4;   // K2: candidates (warps) per block
-constexpr int TJ = 128;    // K2: training rows staged per step
+constexpr int EHVI_TILE = 64;         // K2: candidates per block (4 warps' 16-row tiles)
+constexpr int EHVI_STEP = 64;         // K2: training rows staged per step (2 warps' 32)
+constexpr int EHVI_THREADS = 256;
+constexpr int EHVI_BLOCKS_PER_SM = 2;  // the split aims at this many blocks per SM
+constexpr int SWEEP_THREADS = 256;    // K2's second pass: a warp per candidate
+
+// K2's width d padded to the DMMA depth 4, and its shared-memory row
+// stride: at least that, and 4 mod 16 doubles (bank-conflict-free fragments)
+__host__ __device__ constexpr int ehvi_dpad(int d) { return (d + 3) / 4 * 4; }
+__host__ __device__ constexpr int ehvi_ld(int d) {
+  return ehvi_dpad(d) + (20 - ehvi_dpad(d) % 16) % 16;
+}
 
 __host__ __device__ constexpr int ehvi_smem_doubles(int d) {
-  // s_x (TJ x d), s_xn (TJ), s_a (TJ x 2), s_q (WARPS x d)
-  return TJ * d + TJ + 2 * TJ + WARPS * d;
+  // two stages of s_x ([row][ld]), s_a ([row][2]) and s_xn, then s_q
+  // ([candidate][ld]), s_qn and the two row halves' sums
+  return 2 * EHVI_STEP * (ehvi_ld(d) + 3) + EHVI_TILE * (ehvi_ld(d) + 1) + 4 * EHVI_TILE;
 }
 
 __device__ __forceinline__ double rbf(double d2, double ls2, double signal) {
@@ -571,76 +612,179 @@ gp_g_tell_reduce_kernel(const double* __restrict__ part, double* __restrict__ g,
 // ---------------------------------------------------------------------------
 // K2: per candidate p, mu[t] = sum_{j < n} rbf(xq[p], xs[j]) alpha[j, t] for
 // the 2 objectives, denormalised mu * ymd[1] + ymd[0], then the EHVI sum
-// over the (3, S) staircase rows lows / ups / levels.
+// over the (3, S) staircase rows lows / ups / levels.  Pass 1 writes
+// part[g, p, t], the sum over row split g; pass 2 adds the splits and
+// sweeps the staircase.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(WARPS * 32)
-gp_ehvi_kernel(const double* __restrict__ xq, const double* __restrict__ xs,
-               const double* __restrict__ alpha,
-               const double* __restrict__ stair,
-               const double* __restrict__ ymd, double* __restrict__ out,
-               int P, int d, int n, int S, double ls2, double signal) {
-  extern __shared__ double smem[];
-  double* s_x = smem;
-  double* s_xn = s_x + TJ * d;
-  double* s_a = s_xn + TJ;
-  double* s_q = s_a + 2 * TJ;
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int p = blockIdx.x * WARPS + warp;
-  const bool live = p < P;
+// The first step of row split g of G over `steps` steps of EHVI_STEP rows
+// (gp_ops.ehvi_split): equal runs of whole steps, none empty for G <= steps.
+__host__ __device__ __forceinline__ int ehvi_split_step(int g, int steps, int G) {
+  return (int)((long)g * steps / G);
+}
 
-  for (int e = tid; e < WARPS * d; e += WARPS * 32) {
-    const int pp = blockIdx.x * WARPS + e / d;
-    s_q[e] = pp < P ? xq[(size_t)pp * d + e % d] : 0.0;
+// Block (c, g): candidates c EHVI_TILE .. + 63 against the rows of split g.
+// Warp w takes candidates 16 (w % 4) .. + 15 and rows 32 (w / 4) .. + 31
+// of each staged step: four m16n8k4 DMMA tiles per 4-deep slice of d
+// (padded to dp, a multiple of 4, with zeros), which leave lane (gq, tq)
+// the dot products of candidates gq, gq + 8 with rows 8 j + 2 tq, + 1.
+// Stages hold rows as [row][ld] and candidates as [candidate][ld], ld = 4
+// mod 16 doubles, so fragment loads are free of bank conflicts.
+__global__ void __launch_bounds__(EHVI_THREADS, EHVI_BLOCKS_PER_SM)
+gp_ehvi_partial_kernel(const double* __restrict__ xq, const double* __restrict__ xs,
+                       const double* __restrict__ alpha, double* __restrict__ part, int P,
+                       int d, int n, double scale, double signal) {
+  extern __shared__ __align__(16) double ehvi_smem[];
+  const int dp = ehvi_dpad(d), ld = ehvi_ld(d);
+  // a stage: s_x [row][ld], s_a [row][2], s_xn [row]
+  const int stage_len = EHVI_STEP * (ld + 3);
+  double* s_q = ehvi_smem + 2 * stage_len;   // [candidate][ld]
+  double* s_qn = s_q + EHVI_TILE * ld;
+  double* s_red = s_qn + EHVI_TILE;          // [row half][candidate][2]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ca = (warp & 3) * 16 + gq, wr = warp >> 2;
+  const int c0 = blockIdx.x * EHVI_TILE, g = blockIdx.y;
+  const int steps = ceil_div(n, EHVI_STEP);
+  const int s0 = ehvi_split_step(g, steps, gridDim.y);
+  const int s1 = ehvi_split_step(g + 1, steps, gridDim.y);
+  const int hi = min(n, s1 * EHVI_STEP);
+
+  // rows j0 .. j0 + EHVI_STEP - 1 of xs and alpha into stage `buf`; rows
+  // >= hi and columns >= d are zero-filled (a zero row adds k * 0 = 0)
+  auto stage = [&](int buf, int s) {
+    double* sx = ehvi_smem + buf * stage_len;
+    double* sa = sx + EHVI_STEP * ld;
+    const int j0 = s * EHVI_STEP;
+    for (int e = tid; e < EHVI_STEP * dp; e += EHVI_THREADS) {
+      const int r = e / dp, f = e - r * dp, j = j0 + r;
+      const bool ok = j < hi && f < d;
+      cp_async8(sx + r * ld + f, ok ? xs + (size_t)j * d + f : xs, ok ? 8 : 0);
+    }
+    if (tid < EHVI_STEP) {
+      const int j = j0 + tid;
+      const bool ok = j < hi;
+      cp_async16(sa + 2 * tid, ok ? alpha + 2 * (size_t)j : alpha, ok ? 16 : 0);
+    }
+  };
+  // squared norms of the 64 rows of a [row][ld] stage: 4 lanes a row, each
+  // a fixed quarter of the columns, added by a fixed butterfly
+  auto norms = [&](const double* sv, double* out) {
+    const int r = tid >> 2, q = tid & 3;
+    double v2 = 0.0;
+    for (int f = q; f < dp; f += 4) {
+      const double v = sv[r * ld + f];
+      v2 += v * v;
+    }
+    v2 += __shfl_xor_sync(0xffffffffu, v2, 1);
+    v2 += __shfl_xor_sync(0xffffffffu, v2, 2);
+    if (q == 0) out[r] = v2;
+  };
+
+  for (int e = tid; e < EHVI_TILE * dp; e += EHVI_THREADS) {
+    const int c = e / dp, f = e - c * dp, p = c0 + c;
+    s_q[c * ld + f] = p < P && f < d ? xq[(size_t)p * d + f] : 0.0;
   }
+  if (s0 < s1) stage(0, s0);
+  cp_async_commit();
   __syncthreads();
-  const double* q = s_q + warp * d;
-  double qn = 0.0;
-  for (int f = 0; f < d; ++f) qn += q[f] * q[f];
+  norms(s_q, s_qn);
+  __syncthreads();
+  const double qn0 = s_qn[ca], qn1 = s_qn[ca + 8];
+  double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};   // [candidate ca, ca + 8][objective]
 
-  double acc0 = 0.0, acc1 = 0.0;
-  for (int j0 = 0; j0 < n; j0 += TJ) {
+  for (int s = s0; s < s1; ++s) {
+    const int buf = (s - s0) & 1;
+    if (s + 1 < s1) stage(buf ^ 1, s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // step s has landed
+    const double* sx = ehvi_smem + buf * stage_len;
+    const double* sa = sx + EHVI_STEP * ld;
+    double* sxn = ehvi_smem + buf * stage_len + EHVI_STEP * (ld + 2);
+    norms(sx, sxn);
     __syncthreads();
-    for (int e = tid; e < TJ * d; e += WARPS * 32) {
-      const int j = j0 + e / d;
-      s_x[e] = j < n ? xs[(size_t)j0 * d + e] : 0.0;
+    double c[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[j][r] = 0.0;
+    for (int k0 = 0; k0 < dp; k0 += 4) {
+      const double a0 = s_q[ca * ld + k0 + tq], a1 = s_q[(ca + 8) * ld + k0 + tq];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dmma_16x8x4(c[j], a0, a1, sx[(wr * 32 + j * 8 + gq) * ld + k0 + tq]);
     }
-    for (int e = tid; e < TJ; e += WARPS * 32) {
-      const int j = j0 + e;
-      double s = 0.0;
-      if (j < n)
-        for (int f = 0; f < d; ++f) {
-          const double v = xs[(size_t)j * d + f];
-          s += v * v;
-        }
-      s_xn[e] = s;
-      s_a[2 * e] = j < n ? alpha[2 * (size_t)j] : 0.0;
-      s_a[2 * e + 1] = j < n ? alpha[2 * (size_t)j + 1] : 0.0;
-    }
-    __syncthreads();
-    if (live) {
-      const int jn = min(TJ, n - j0);
-      for (int jj = lane; jj < jn; jj += 32) {
-        double dot = 0.0;
-        for (int f = 0; f < d; ++f) dot += q[f] * s_x[jj * d + f];
-        const double k = rbf((qn + s_xn[jj]) - 2.0 * dot, ls2, signal);
-        acc0 += k * s_a[2 * jj];
-        acc1 += k * s_a[2 * jj + 1];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * 32 + j * 8 + 2 * tq + h;
+        const double xn = sxn[r];
+        const double2 a = *reinterpret_cast<const double2*>(sa + 2 * r);
+        const double k0v = signal * exp(fmax((qn0 + xn) - 2.0 * c[j][h], 0.0) * scale);
+        const double k1v = signal * exp(fmax((qn1 + xn) - 2.0 * c[j][2 + h], 0.0) * scale);
+        acc[0][0] = fma(k0v, a.x, acc[0][0]);
+        acc[0][1] = fma(k0v, a.y, acc[0][1]);
+        acc[1][0] = fma(k1v, a.x, acc[1][0]);
+        acc[1][1] = fma(k1v, a.y, acc[1][1]);
       }
-    }
+    __syncthreads();   // stage buf is read before step s + 2 refills it
   }
-  if (!live) return;   // no block-wide barrier follows
-  const double mu0 = warp_sum(acc0) * ymd[2] + ymd[0];
-  const double mu1 = warp_sum(acc1) * ymd[3] + ymd[1];
-  double part = 0.0;
+  cp_async_wait<0>();
+
+  // the 4 lanes of a candidate pair add their sums by a fixed butterfly;
+  // the two row halves meet in shared memory and are added in order
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      acc[i][o] += __shfl_xor_sync(0xffffffffu, acc[i][o], 1);
+      acc[i][o] += __shfl_xor_sync(0xffffffffu, acc[i][o], 2);
+    }
+  if (tq == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s_red[(wr * EHVI_TILE + ca + 8 * i) * 2] = acc[i][0];
+      s_red[(wr * EHVI_TILE + ca + 8 * i) * 2 + 1] = acc[i][1];
+    }
+  __syncthreads();
+  if (tid < EHVI_TILE && c0 + tid < P) {
+    const double* lo = s_red + 2 * tid;
+    const double* up = s_red + 2 * (EHVI_TILE + tid);
+    *reinterpret_cast<double2*>(part + 2 * ((size_t)g * P + c0 + tid)) =
+        make_double2(lo[0] + up[0], lo[1] + up[1]);
+  }
+}
+
+__global__ void __launch_bounds__(SWEEP_THREADS)
+gp_ehvi_sweep_kernel(const double* __restrict__ part, const double* __restrict__ stair,
+                     const double* __restrict__ ymd, double* __restrict__ out, int P, int S,
+                     int G) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (SWEEP_THREADS / 32) + (threadIdx.x >> 5);
+  if (p >= P) return;   // uniform across the warp; no barrier follows
+  double m0 = 0.0, m1 = 0.0;
+  for (int g = lane; g < G; g += 32) {
+    const double2 v = *reinterpret_cast<const double2*>(part + 2 * ((size_t)g * P + p));
+    m0 += v.x;
+    m1 += v.y;
+  }
+  const double mu0 = warp_sum(m0) * ymd[2] + ymd[0];
+  const double mu1 = warp_sum(m1) * ymd[3] + ymd[1];
+  double sum = 0.0;
   for (int s = lane; s < S; s += 32) {
     const double width = fmax(stair[S + s] - fmax(stair[s], mu0), 0.0);
     const double height = fmax(stair[2 * (size_t)S + s] - mu1, 0.0);
-    part += width * height;
+    sum += width * height;
   }
-  part = warp_sum(part);
-  if (lane == 0) out[p] = part;
+  sum = warp_sum(sum);
+  if (lane == 0) out[p] = sum;
 }
 
 // Raises a kernel's dynamic shared memory limit on the current device to
@@ -807,16 +951,22 @@ int gp_g(const double* w, const double* lib, double* g, double* ws, long ws_len,
   });
 }
 
-int gp_ehvi(const double* xq, const double* xs, const double* alpha,
-            const double* stair, const double* ymd, double* out, int P, int d,
-            int n, int S, double ls2, double signal, int device, void* stream) {
-  if (P <= 0 || d <= 0 || n < 0 || S <= 0) return (int)cudaErrorInvalidValue;
+int gp_ehvi(const double* xq, const double* xs, const double* alpha, const double* stair,
+            const double* ymd, double* out, double* ws, long ws_len, int P, int d, int n,
+            int S, int splits, double ls2, double signal, int device, void* stream) {
+  if (P <= 0 || d <= 0 || n < 0 || S <= 0 || splits < 1 ||
+      splits > max(1, ceil_div(n, EHVI_STEP)) || splits > 65535 || ws_len < 2L * splits * P)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> int {
     const int smem = ehvi_smem_doubles(d) * (int)sizeof(double);
-    const int err = set_smem((const void*)gp_ehvi_kernel, smem, device, ehvi_smem_set);
+    int err = set_smem((const void*)gp_ehvi_partial_kernel, smem, device, ehvi_smem_set);
     if (err) return err;
-    gp_ehvi_kernel<<<ceil_div(P, WARPS), WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        xq, xs, alpha, stair, ymd, out, P, d, n, S, ls2, signal);
+    gp_ehvi_partial_kernel<<<dim3(ceil_div(P, EHVI_TILE), splits), EHVI_THREADS, smem, st>>>(
+        xq, xs, alpha, ws, P, d, n, -0.5 / ls2, signal);
+    if ((err = (int)cudaGetLastError())) return err;
+    gp_ehvi_sweep_kernel<<<ceil_div(P, SWEEP_THREADS / 32), SWEEP_THREADS, 0, st>>>(
+        ws, stair, ymd, out, P, S, splits);
     return (int)cudaGetLastError();
   });
 }
@@ -824,10 +974,11 @@ int gp_ehvi(const double* xq, const double* xs, const double* alpha,
 // The kernels' shape constants, in this order: fold tile rows, fold tile
 // columns, contraction step, fold threads, ring stages, fold shared memory
 // bytes, rows per fix-up block, largest tell B, tell threads, K1b tell
-// panel rows and columns.
+// panel rows and columns, K2's candidates per block, rows per step and
+// the blocks per SM its split aims at.
 void gp_config(int* out) {
   const int v[] = {FM, FN, FK, FTHREADS, FSTAGES, FOLD_SMEM, FIX_ROWS, TELL_MAX_B,
-                   TELL_THREADS, PANEL, PCOLS};
+                   TELL_THREADS, PANEL, PCOLS, EHVI_TILE, EHVI_STEP, EHVI_BLOCKS_PER_SM};
   for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
 }
 

@@ -304,22 +304,27 @@ int log2_exact(int v) {
 
 extern "C" {
 
-// dtype (of x, b, c and y): 0 = float32, 1 = bfloat16.  Returns a
-// cudaError_t: the result of cudaGetLastError() right after the launch (0 when
-// it was accepted).
+// dtype (of x, b, c and y): 0 = float32, 1 = bfloat16.  Launches on
+// `device` (made current for the launch when it is not, then restored) and
+// `stream`.  Returns a cudaError_t: the result of cudaGetLastError() right
+// after the launch (0 when it was accepted).
 int ssd_scan_fwd(const void* x, const void* a_log, const void* b, const void* c,
                  const void* dt, void* y, void* state, int dtype, int B, int S, int H,
-                 int P, int N, int Q, void* stream) {
+                 int P, int N, int Q, int device, void* stream) {
   const int lgN = log2_exact(N);
   if (B <= 0 || S <= 0 || H <= 0 || Q <= 0 || Q > 256 || lgN < 4 || N > MAX_N ||
-      (long)B * H > 2147483647L)
+      (long)B * H > 2147483647L || (dtype != 0 && dtype != 1) || device < 0)
     return (int)cudaErrorInvalidValue;
+  int cur = 0;
+  int err = (int)cudaGetDevice(&cur);
+  if (err) return err;
+  if (cur != device && (err = (int)cudaSetDevice(device))) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_p<float>(P, x, a_log, b, c, dt, y, state, B, S, H, lgN, Q, st);
-  if (dtype == 1)
-    return launch_p<__nv_bfloat16>(P, x, a_log, b, c, dt, y, state, B, S, H, lgN, Q, st);
-  return (int)cudaErrorInvalidValue;
+  err = dtype == 0
+            ? launch_p<float>(P, x, a_log, b, c, dt, y, state, B, S, H, lgN, Q, st)
+            : launch_p<__nv_bfloat16>(P, x, a_log, b, c, dt, y, state, B, S, H, lgN, Q, st);
+  if (cur != device) cudaSetDevice(cur);
+  return err;
 }
 
 // Dynamic shared memory one block needs (0 if the sizes are unsupported).

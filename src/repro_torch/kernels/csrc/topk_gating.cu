@@ -20,7 +20,11 @@
 //
 // What bounds it on an H100: at deepseek-moe-16b's router (E = 64, k = 6)
 // and T = 256 tokens it reads 64 KB and writes 12 KB, a fraction of a
-// microsecond at 3.35 TB/s; the launch itself dominates.
+// microsecond at 3.35 TB/s; the launch itself dominates (about 3 us of
+// device time per launch), and a call's time is its host path.  So the
+// entry point takes the device index and makes it current only when it is
+// not (no torch.cuda.device context around the call), and the stream as a
+// raw handle.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,17 +105,24 @@ topk_gating_kernel(const float* __restrict__ logits, float* __restrict__ top_p,
 
 extern "C" {
 
-// Returns a cudaError_t: the result of cudaGetLastError() right after the
-// launch (0 when it was accepted).
+// Launches on `device` (made current for the launch when it is not, then
+// restored) and `stream`.  Returns a cudaError_t: the result of
+// cudaGetLastError() right after the launch (0 when it was accepted).
 int topk_gating_fwd(const void* logits, void* top_p, void* top_ids, int T, int E, int K,
-                    void* stream) {
-  if (T <= 0 || E <= 0 || E > MAX_E || K <= 0 || K > MAX_K || K > E)
+                    int device, void* stream) {
+  if (T <= 0 || E <= 0 || E > MAX_E || K <= 0 || K > MAX_K || K > E || device < 0)
     return (int)cudaErrorInvalidValue;
+  int cur = 0;
+  int err = (int)cudaGetDevice(&cur);
+  if (err) return err;
+  if (cur != device && (err = (int)cudaSetDevice(device))) return err;
   const int blocks = (T + ROWS - 1) / ROWS;
   topk_gating_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(logits), static_cast<float*>(top_p),
       static_cast<int*>(top_ids), T, E, K);
-  return (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return err;
 }
 
 const char* topk_gating_error_string(int err) {

@@ -154,7 +154,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
-        int(window), d ** -0.5, dev, torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), d ** -0.5, dev, build.current_stream(dev))
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: cudaError {err} ({msg})")

@@ -30,9 +30,15 @@ CUDA tensor, launches its kernels or raises; it counts one launch per call
 kernels the call runs, and checks the shared memory it needs against the
 device's limit once per (device, kernel, d).
 
-All of it is float64.  The kernels' tiles are their own (one warp per
-candidate in K2): the reference's ``block``/``pool_block`` of 256 × 256
-float64 (512 KB) do not fit a Hopper block's 227 KB of shared memory.  ARD
+K2 is two passes: a grid of 64-candidate tiles × row splits
+(``ehvi_splits``: enough splits for two blocks per SM), whose blocks
+contract candidates against staged rows on the float64 tensor cores, writes
+each split's partial means to a workspace, and a warp per candidate adds
+the splits in a fixed order and sweeps the staircase.
+
+All of it is float64.  The kernels' tiles are their own: the reference's
+``block``/``pool_block`` of 256 × 256 float64 (512 KB) do not fit a Hopper
+block's 227 KB of shared memory.  ARD
 lengthscales are handled by the caller pre-scaling X by ``ils`` with
 ``ls2 = 1``, as the reference does.
 """
@@ -97,6 +103,11 @@ TELL_PANEL = 64            # K1b tell: rows per partial sum
 TELL_COLS = 512            # K1b tell: columns per block
 
 
+EHVI_TILE = 64             # K2: candidates per block of the first pass
+EHVI_STEP = 64             # K2: training rows staged per step
+EHVI_BLOCKS_PER_SM = 2     # K2: the split aims at this many blocks per SM
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -145,15 +156,34 @@ def fold_split(name: str, n: int, B: int, blocks: int) -> list:
     return out
 
 
+def ehvi_splits(n: int, P: int, sms: int) -> int:
+    """G, the row splits of K2's grid at n active rows and P candidates on
+    ``sms`` SMs: max(1, min(steps, ceil(EHVI_BLOCKS_PER_SM · sms / tiles)))
+    for ceil(n / EHVI_STEP) steps of rows and ceil(P / EHVI_TILE) tiles, so
+    the tiles × G blocks fill the card at the search shape."""
+    return max(1, min(_cdiv(n, EHVI_STEP), _cdiv(EHVI_BLOCKS_PER_SM * sms, _cdiv(P, EHVI_TILE))))
+
+
+def ehvi_split(n: int, P: int, sms: int) -> tuple:
+    """K2's grid: (candidate tiles, row runs).  The steps of rows are cut
+    into ``ehvi_splits`` equal runs of whole steps, none empty; run g is
+    rows [lo, hi) with hi ≤ n.  The device cuts the same runs from (n, G)."""
+    tiles, steps, G = _cdiv(P, EHVI_TILE), _cdiv(n, EHVI_STEP), ehvi_splits(n, P, sms)
+    edges = [min(n, g * steps // G * EHVI_STEP) for g in range(G + 1)]
+    return tiles, list(zip(edges[:-1], edges[1:]))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 _CONFIG_KEYS = ("fold_tile_rows", "fold_tile_cols", "k_step", "fold_threads", "stages",
                 "fold_smem_bytes", "fixup_rows", "tell_max_B", "tell_threads",
-                "tell_panel_rows", "tell_panel_cols")
+                "tell_panel_rows", "tell_panel_cols", "ehvi_tile", "ehvi_step",
+                "ehvi_blocks_per_sm")
 _KERNEL_IDS = {"gp_w": 0, "gp_g": 1, "gp_ehvi": 2}
 _FITS = set()       # (device, kernel, d, fold) whose shared memory was checked
+_SMS = {}           # device index -> streaming multiprocessors
 
 
 def _lib() -> ctypes.CDLL:
@@ -164,7 +194,7 @@ def _lib() -> ctypes.CDLL:
         lib.gp_workspace.restype = ln
         lib.gp_w.argtypes = [p] * 5 + [ln] + [i] * 5 + [f, f, i, p]
         lib.gp_g.argtypes = [p] * 4 + [ln] + [i] * 4 + [p]
-        lib.gp_ehvi.argtypes = [p] * 6 + [i] * 4 + [f, f, i, p]
+        lib.gp_ehvi.argtypes = [p] * 7 + [ln] + [i] * 5 + [f, f, i, p]
         for fn in (lib.gp_w, lib.gp_g, lib.gp_ehvi):
             fn.restype = i
         lib.gp_config.argtypes = [p]
@@ -180,7 +210,8 @@ def _lib() -> ctypes.CDLL:
         lib.config = dict(zip(_CONFIG_KEYS, out))
         want = {"fold_tile_rows": FOLD_TILE, "fold_tile_cols": FOLD_TILE, "k_step": FOLD_STEP,
                 "tell_max_B": TELL_BLOCKS[-1], "tell_panel_rows": TELL_PANEL,
-                "tell_panel_cols": TELL_COLS}
+                "tell_panel_cols": TELL_COLS, "ehvi_tile": EHVI_TILE,
+                "ehvi_step": EHVI_STEP, "ehvi_blocks_per_sm": EHVI_BLOCKS_PER_SM}
         if any(lib.config[k] != v for k, v in want.items()):
             raise RuntimeError(f"gp_ops.cu's shapes {lib.config} differ from gp_ops.py's {want}")
         lib._typed = True
@@ -194,8 +225,8 @@ def tiles(B: int, cap: int, n: int) -> dict:
     cfg = _lib().config
     out = {"form": form(B)}
     if out["form"] == "fold":
-        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-        split = {k: fold_split(k, n, B, sms) for k in ("gp_w", "gp_g")}
+        split = {k: fold_split(k, n, B, sm_count(torch.cuda.current_device()))
+                 for k in ("gp_w", "gp_g")}
         out.update(tile=[cfg["fold_tile_rows"], cfg["fold_tile_cols"]], k_step=cfg["k_step"],
                    threads=cfg["fold_threads"], stages=cfg["stages"],
                    smem_bytes=cfg["fold_smem_bytes"],
@@ -214,6 +245,13 @@ def tiles(B: int, cap: int, n: int) -> dict:
                    panel=[TELL_PANEL, TELL_COLS])
     out["k12_grid"] = [_cdiv(n, FOLD_TILE) * FOLD_TILE // 64, _cdiv(B, min(B, 64))]
     return out
+
+
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device``, read once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def _on_cpu(name, *ts) -> bool:
@@ -259,7 +297,7 @@ def _check_fits(name: str, device: int, d: int, fold: bool) -> None:
 
 def _launch(name, dev, *args):
     lib = _lib()
-    err = getattr(lib, name)(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    err = getattr(lib, name)(*args, dev.index, build.current_stream(dev.index))
     if err:
         msg = lib.gp_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")
@@ -323,7 +361,11 @@ def gp_g(w, lib, n):
 
 def gp_ehvi(xq, xs, alpha, n, stair, ymd, *, ls2, signal):
     """K2: EHVI of each pool candidate (see ``gp_ehvi_plain``).  xq (P, d),
-    xs (cap, d), alpha (cap, 2), stair (3, S), ymd (2, 2) -> (P,)."""
+    xs (cap, d), alpha (cap, 2), stair (3, S), ymd (2, 2) -> (P,).
+
+    On the card one call runs the split partial means (``ehvi_split``'s
+    grid) and the sweep (two launches) and counts once in ``launches``;
+    the output and the partials share one allocation."""
     P, d = xq.shape
     cap = xs.shape[0]
     if (xs.shape[1] != d or alpha.shape != (cap, 2) or stair.dim() != 2
@@ -333,11 +375,14 @@ def gp_ehvi(xq, xs, alpha, n, stair, ymd, *, ls2, signal):
                          f"ymd {tuple(ymd.shape)}, n={n}")
     if _on_cpu("gp_ehvi", xq, xs, alpha, stair, ymd):
         return gp_ehvi_plain(xq, xs, alpha, n, stair, ymd, ls2=ls2, signal=signal)
-    _check_fits("gp_ehvi", xq.device.index, d, False)
-    out = torch.empty((P,), dtype=F64, device=xq.device)
-    _launch("gp_ehvi", xq.device, xq.data_ptr(), xs.data_ptr(), alpha.data_ptr(),
-            stair.data_ptr(), ymd.data_ptr(), out.data_ptr(), P, d, int(n),
-            stair.shape[1], float(ls2), float(signal))
+    dev = xq.device
+    _check_fits("gp_ehvi", dev.index, d, False)
+    G = ehvi_splits(int(n), P, sm_count(dev.index))
+    buf = torch.empty((2 * G * P + P,), dtype=F64, device=dev)   # partials, then out
+    out = buf[2 * G * P:]
+    _launch("gp_ehvi", dev, xq.data_ptr(), xs.data_ptr(), alpha.data_ptr(), stair.data_ptr(),
+            ymd.data_ptr(), out.data_ptr(), buf.data_ptr(), 2 * G * P, P, d, int(n),
+            stair.shape[1], G, float(ls2), float(signal))
     gp_ehvi.launches += 1
     return out
 

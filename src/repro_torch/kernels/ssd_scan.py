@@ -96,7 +96,7 @@ def ssd_scan_plain(x, a_log, b, c, dt, *, chunk):
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
-        lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.ssd_scan_fwd.restype = ctypes.c_int
         lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_scan_smem_bytes.restype = ctypes.c_int
@@ -160,17 +160,17 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
     n = b.shape[2]
     lib = _lib()
     need = lib.ssd_scan_smem_bytes(p, n, chunk)
-    limit = lib.ssd_scan_smem_limit(x.device.index or 0)
+    limit = lib.ssd_scan_smem_limit(x.device.index)
     if need <= 0 or need > limit:
         raise RuntimeError(f"ssd_scan needs {need} B of shared memory per block at "
                            f"P={p}, N={n}, chunk={chunk}; the device allows {limit} B")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_fwd(x.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
-                               dt.data_ptr(), y.data_ptr(), state.data_ptr(),
-                               _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, stream)
+    dev = x.device.index
+    err = lib.ssd_scan_fwd(x.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
+                           dt.data_ptr(), y.data_ptr(), state.data_ptr(),
+                           _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, dev,
+                           build.current_stream(dev))
     if err:
         msg = lib.ssd_scan_error_string(err).decode()
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err} ({msg})")

@@ -14,7 +14,10 @@ It masks the ragged T itself, so there is no ``block_t`` padding.
 
 What bounds it on an H100: at deepseek-moe-16b's router (E = 64, k = 6) the
 row count is at most a few hundred, so it moves tens of KB and the launch
-dominates.
+dominates; a call's time is the wrapper's host path.  So the wrapper keeps
+that path short: its checks, the outputs' allocations (``out_buffers``),
+the raw current stream and one ctypes call, to which it passes the device
+index (the C side switches device only when it differs).
 """
 from __future__ import annotations
 
@@ -45,12 +48,35 @@ def topk_gating_plain(logits, k):
 def _lib() -> ctypes.CDLL:
     lib = build.load("topk_gating")
     if not getattr(lib, "_typed", False):
-        lib.topk_gating_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.topk_gating_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p])
         lib.topk_gating_fwd.restype = ctypes.c_int
         lib.topk_gating_error_string.argtypes = [ctypes.c_int]
         lib.topk_gating_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def out_buffers(logits, k):
+    """K5's two contiguous (T, k) outputs beside fp32 ``logits`` (T, E):
+    fp32 probabilities and int32 ids, made the cheapest way measured on the
+    card's host (``chip_smoke.py``'s ``topk_host_path``): ``new_empty`` of
+    the logits, which takes their device and dtype without parsing either,
+    then ``torch.empty_like`` of it.  One (2, T, k) allocation with a view
+    per plane cost more than two allocations, the views' dispatch eating
+    the saving."""
+    top_p = logits.new_empty((logits.shape[0], k))
+    return top_p, torch.empty_like(top_p, dtype=torch.int32)
+
+
+def _check(logits, k):
+    if logits.dim() != 2 or logits.dtype != torch.float32 or not logits.is_contiguous():
+        raise ValueError(f"topk_gating wants contiguous (T, E) float32 logits, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    t, e = logits.shape
+    if t < 1 or not 1 <= e <= MAX_EXPERTS or not 1 <= k <= min(MAX_K, e):
+        raise ValueError(f"topk_gating takes T >= 1, E <= {MAX_EXPERTS} and "
+                         f"k <= min({MAX_K}, E); got T={t}, E={e}, k={k}")
 
 
 def topk_gating(logits, k):
@@ -60,24 +86,17 @@ def topk_gating(logits, k):
     through ``topk_gating_plain``.  A CUDA tensor launches the CUDA kernel or
     raises.
     """
-    if logits.device.type == "cpu":
+    dev = logits.device
+    if dev.type == "cpu":
         return topk_gating_plain(logits, k)
-    if logits.device.type != "cuda":
-        raise ValueError(f"topk_gating runs on cuda or cpu, not {logits.device}")
-    if logits.dim() != 2 or logits.dtype != torch.float32 or not logits.is_contiguous():
-        raise ValueError(f"topk_gating wants contiguous (T, E) float32 logits, got "
-                         f"{tuple(logits.shape)} {logits.dtype}")
+    if dev.type != "cuda":
+        raise ValueError(f"topk_gating runs on cuda or cpu, not {dev}")
+    _check(logits, k)
     t, e = logits.shape
-    if t < 1 or not 1 <= e <= MAX_EXPERTS or not 1 <= k <= min(MAX_K, e):
-        raise ValueError(f"topk_gating takes T >= 1, E <= {MAX_EXPERTS} and "
-                         f"k <= min({MAX_K}, E); got T={t}, E={e}, k={k}")
-    top_p = torch.empty((t, k), dtype=torch.float32, device=logits.device)
-    top_ids = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+    top_p, top_ids = out_buffers(logits, k)
     lib = _lib()
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = lib.topk_gating_fwd(logits.data_ptr(), top_p.data_ptr(), top_ids.data_ptr(),
-                                  t, e, k, stream)
+    err = lib.topk_gating_fwd(logits.data_ptr(), top_p.data_ptr(), top_ids.data_ptr(),
+                              t, e, k, dev.index, build.current_stream(dev.index))
     if err:
         msg = lib.topk_gating_error_string(err).decode()
         raise RuntimeError(f"topk_gating launch failed: cudaError {err} ({msg})")

@@ -18,7 +18,9 @@ within 1e-6.  K4 and K5 launched twice on the same inputs are bitwise
 equal.  The GP kernels are float64: w, g and
 the new rows of L and L⁻¹ within 1e-10 · max(1, max|ref|), EHVI within 1e-8
 absolute (``tests/test_gp_pallas.py``'s gate), and two launches on the same
-inputs bitwise equal.
+inputs bitwise equal; K2 also at the row counts where its row splits are
+cut.  K5 also runs on a side stream after a slow producer there, and the
+raw stream accessor the wrappers use must give PyTorch's current stream.
 """
 import numpy as np
 import pytest
@@ -253,12 +255,33 @@ def test_gp_append_wrappers_raise_on_what_the_forms_do_not_take(cuda):
     (8192, 5000, 37, 5, 40, False),     # a pool that is not a warp multiple
 ])
 def test_gp_ehvi_kernel_matches_plain(cuda, cap, n, P, d, n_front, ard):
+    _check_ehvi(cuda, cap, n, P, d, n_front, ard, 0.09, seed=n + P + n_front)
+
+
+# n = 0, 1, one below, on and one past the 64-row step edge that ends the
+# last row split at the search path's P (8 tiles x 33 splits on 132 SMs),
+# and the search path's n; P one candidate, and one below and one past a
+# 64-candidate tile edge; d = 3, the search path's 14, and 33 (above the
+# 48 KB of shared memory a block gets without opting in); S = 2 and 129
+@pytest.mark.parametrize("n", [0, 1, 6143, 6144, 6145, 6250])
+@pytest.mark.parametrize("P", [1, 511, 513])
+@pytest.mark.parametrize("d", [3, 14, 33])
+@pytest.mark.parametrize("n_front", [1, 100], ids=["S2", "S129"])
+def test_gp_ehvi_kernel_across_split_edges(cuda, n, P, d, n_front):
+    # ls² grows with d, so the kernel values stay far from 0 at d = 33
+    _check_ehvi(cuda, 8192, n, P, d, n_front, False, 0.09 * d / 14, seed=n + P + d + n_front)
+
+
+def _check_ehvi(dev, cap, n, P, d, n_front, ard, ls2_iso, seed):
+    """K2 against its plain version within 1e-8 and bitwise across two
+    launches, each counted once; some score is positive.  ``ls2_iso`` is
+    ls² when isotropic (ARD pre-scales the rows, ls² = 1)."""
     from repro_torch.kernels import gp_ops
 
-    rng = np.random.default_rng(n + P + n_front)
+    rng = np.random.default_rng(seed)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, float), dtype=torch.float64, device=cuda)
+        return torch.as_tensor(np.asarray(a, float), dtype=torch.float64, device=dev)
 
     xb = np.zeros((cap, d))
     xb[:n] = rng.random((n, d))
@@ -275,17 +298,18 @@ def test_gp_ehvi_kernel_matches_plain(cuda, cap, n, P, d, n_front, ard):
                       np.concatenate([ref[1:], y])])
     ymd = np.array([[0.2, 0.3], [0.2, 0.3]])
     ils = t(1.0 / rng.uniform(0.5, 1.5, d)) if ard else None
+    ls2 = 1.0 if ard else ls2_iso
     args = (t(xb), t(alpha), n, t(rng.random((P, d))), t(stair), t(ymd), ils)
     before = gp_ops.gp_ehvi.launches
-    got = gp_ops.gp_fused_ehvi(*args, ls2=1.0 if ard else 0.09, signal=1.0)
-    got2 = gp_ops.gp_fused_ehvi(*args, ls2=1.0 if ard else 0.09, signal=1.0)
+    got = gp_ops.gp_fused_ehvi(*args, ls2=ls2, signal=1.0)
+    got2 = gp_ops.gp_fused_ehvi(*args, ls2=ls2, signal=1.0)
     torch.cuda.synchronize()
     assert gp_ops.gp_ehvi.launches == before + 2
     assert torch.equal(got, got2)
     xq = args[3] if ils is None else args[3] * ils
     xs = args[0] if ils is None else args[0] * ils
-    want = gp_ops.gp_ehvi_plain(xq, xs, args[1], n, args[4], args[5],
-                                ls2=1.0 if ard else 0.09, signal=1.0)
+    want = gp_ops.gp_ehvi_plain(xq, xs, args[1], n, args[4], args[5], ls2=ls2, signal=1.0)
+    assert got.shape == (P,) and got.is_contiguous()
     assert (got - want).abs().max().item() <= 1e-8
     assert (want > 0).any()
 
@@ -384,6 +408,41 @@ def test_topk_kernel_matches_plain(cuda, t, e, k, ties):
     assert torch.equal(p, p2) and torch.equal(ids, ids2)
     want_p, want_ids = k5.topk_gating_plain(logits, k)
     assert ids.dtype == torch.int32 and torch.equal(ids, want_ids)
+    assert (p - want_p).abs().max().item() <= 1e-6
+
+
+def test_raw_stream_accessor_is_the_current_stream(cuda):
+    from repro_torch.kernels import build
+
+    idx = torch.cuda.current_device()
+    assert build.current_stream(idx) == torch.cuda.current_stream(idx).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert build.current_stream(idx) == side.cuda_stream
+        assert build.current_stream(idx) == torch.cuda.current_stream(idx).cuda_stream
+        assert side.cuda_stream != torch.cuda.default_stream(idx).cuda_stream
+
+
+def test_topk_on_a_side_stream_runs_after_its_producer(cuda):
+    """K5 launched while a side stream is current runs on that stream: it
+    reads the logits a slow producer on the same stream writes, not the
+    zeros they held before."""
+    from repro_torch.kernels import topk_gating as k5
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    source = torch.randn((256, 64), generator=g, device=cuda)
+    logits = torch.zeros_like(source)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = k5.topk_gating.launches
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)      # the producer starts late
+        logits.copy_(source)
+        p, ids = k5.topk_gating(logits, 6)
+    side.synchronize()
+    assert k5.topk_gating.launches == before + 1
+    want_p, want_ids = k5.topk_gating_plain(source, 6)
+    assert torch.equal(ids, want_ids)
     assert (p - want_p).abs().max().item() <= 1e-6
 
 

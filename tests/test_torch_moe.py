@@ -50,6 +50,20 @@ def test_plain_matches_pallas_and_ref(t, e, k, ties):
         np.testing.assert_allclose(p.numpy(), np.asarray(want_p), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("t,k", [(1, 1), (37, 4), (256, 6), (33, 8)])
+def test_out_buffers_are_two_contiguous_disjoint_outputs(t, k):
+    """The CUDA wrapper's outputs: contiguous (T, k) fp32 and int32 tensors
+    on the logits' device, neither overlapping the other."""
+    p, ids = k5.out_buffers(torch.zeros((t, 16)), k)
+    assert p.shape == ids.shape == (t, k)
+    assert p.dtype == torch.float32 and ids.dtype == torch.int32
+    assert p.device.type == ids.device.type == "cpu"
+    assert p.is_contiguous() and ids.is_contiguous()
+    p.fill_(0.5)
+    ids.fill_(-1)
+    assert torch.all(p == 0.5) and torch.all(ids == -1)
+
+
 def test_ties_go_to_the_lower_index():
     x = torch.zeros((3, 8))
     x[1, 5] = x[1, 2] = 1.0
