@@ -18,6 +18,9 @@ failed check and then prints no result):
    kernels' registers and spills (``-Xptxas -v``; none may spill), and the
    float64 instructions of one ``exp()`` in a probe built beside the
    kernels (``PROBE_SOURCE``), which K2's bound charges per pair;
+   ssd_sass: the tensor-core (``HMMA``) instructions of each K4
+   instantiation, which every bf16 chunk kernel must have, with its
+   registers and spills;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
@@ -28,7 +31,8 @@ failed check and then prints no result):
    window at a 4096-token prompt);
    K4 (``ssd_parity``) the same way, with y and the fp32 final state at
    ``SSD_TOL`` in fp32, on ``tests/test_kernels.py``'s grid, every shape of
-   the Mamba path and a jamba-like head; K5 (``topk_parity``) with ids equal
+   the Mamba path, a jamba-like head, H = 5 and chunks of 8 and 75, with
+   every SM's shared memory filled with NaN before each launch; K5 (``topk_parity``) with ids equal
    and probabilities within ``TOPK_P_TOL``, ties and ragged T included;
    K4 and K5 launched twice on the same inputs must repeat bitwise;
 4. main path (serving): llama2-7b at full width in bf16 with random weights
@@ -91,8 +95,9 @@ failed check and then prints no result):
    and the serving times of all three paths; K2's line gives its grid
    (candidate tiles × row splits) and the profiler's time per kernel by
    name; ``topk_host_path`` times K5's call path piece by piece beside an
-   empty kernel launched through ctypes (the launch floor), and K4's line
-   its host enqueue time per call.
+   empty kernel launched through ctypes (the launch floor); K4 at each of
+   its five serving-path shapes, with its grid, the device time inside a
+   CUDA graph (``graph_ms``) and its host enqueue time per call.
 
 Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -320,16 +325,18 @@ def exp_f64_instructions(probe):
     return {"fast_path": fast, "all": total}
 
 
-def ptxas_resources(log):
+def ptxas_resources(log, name_of=None):
     """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
-    ``-Xptxas -v`` report, kernel names as ``gp_kernel_name`` gives them."""
+    ``-Xptxas -v`` report, kernel names as ``name_of`` (by default
+    ``gp_kernel_name``) gives them."""
     import re
 
+    name_of = name_of or gp_kernel_name
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = out.setdefault(gp_kernel_name(m[1]), {})
+            cur = out.setdefault(name_of(m[1]), {})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur is not None:
@@ -415,6 +422,45 @@ def phase_gp_sass(info, probe):
     if exp_f64["fast_path"] == 0:
         raise AssertionError(f"no float64 instructions counted in exp(): {exp_f64}")
     return exp_f64["fast_path"]
+
+
+def ssd_kernel_name(mangled):
+    """``bf16_chunk_p64``, ``bf16_state_pass`` or ``fp32_p64`` from a
+    mangled K4 kernel name."""
+    import re
+
+    m = re.search(r"ssd_chunk_kernelILi(\d+)E", mangled)
+    if m:
+        return f"bf16_chunk_p{m[1]}"
+    m = re.search(r"ssd_scan_kernelILi(\d+)E", mangled)
+    if m:
+        return f"fp32_p{m[1]}"
+    if "fill_smem_kernel" in mangled:
+        return "shared_memory_fill"
+    return "bf16_state_pass" if "ssd_state_kernel" in mangled else mangled
+
+
+def phase_ssd_sass(info):
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in each K4
+    instantiation's SASS, by ``cuobjdump``, with its registers and spills
+    (``-Xptxas -v``); every bf16 chunk kernel (one per P) must have HMMA."""
+    import re
+
+    from repro_torch.kernels.ssd_scan import SUPPORTED_HEAD_DIMS
+
+    counts, cur = {}, None
+    for line in sass_of(info.path).splitlines():
+        if "Function :" in line:
+            cur = counts.setdefault(ssd_kernel_name(line.split("Function :")[1].strip()),
+                                    {"HMMA": 0, "HGMMA": 0})
+        elif cur is not None:
+            for op in cur:
+                cur[op] += bool(re.search(rf"\b{op}\b", line))
+    emit("ssd_sass", counts=counts, resources=ptxas_resources(info.log, ssd_kernel_name))
+    lacking = [f"bf16_chunk_p{p}" for p in SUPPORTED_HEAD_DIMS
+               if counts.get(f"bf16_chunk_p{p}", {"HMMA": 0})["HMMA"] == 0]
+    if lacking:
+        raise AssertionError(f"K4 bf16 instantiations without HMMA: {lacking}")
 
 
 def phase_parity():
@@ -732,13 +778,18 @@ def ssd_main_path_cases():
             + [(f"slot_prefill_s{s}", 1, s, h, p, n, q, "bfloat16") for s in SSM_SLOT_PROMPTS])
 
 
-# Beyond the main path: tests/test_kernels.py's grid (fp32) and a jamba-like head
+# Beyond the main path: tests/test_kernels.py's grid (fp32), a jamba-like
+# head, an fp32 600-token call, and the bf16 kernel at an odd head count, a
+# small chunk and an odd chunk
 SSD_EXTRA_CASES = [
     ("grid_s64", 2, 64, 2, 16, 16, 16, "float32"),
     ("grid_s96", 2, 96, 4, 32, 32, 32, "float32"),
     ("grid_s40_pad", 2, 40, 1, 16, 64, 16, "float32"),
     ("jamba_like", 1, 300, 128, 64, 16, 256, "bfloat16"),
     ("mamba_s600_fp32", 1, 600, 48, 64, 128, 256, "float32"),
+    ("h5_odd_heads", 6, 600, 5, 64, 128, 64, "bfloat16"),
+    ("chunk8", 1, 100, 4, 64, 128, 8, "bfloat16"),           # 13 chunks of 8
+    ("chunk75_odd", 4, 600, 48, 64, 128, 75, "bfloat16"),    # 8 chunks of 75
 ]
 
 
@@ -746,7 +797,8 @@ def phase_ssd_parity():
     """K4 against its plain version: y at TOL[dtype] (fp32 at SSD_TOL), the
     fp32 final state at SSD_TOL, a bf16 y also against the plain version run
     in fp32 on the same inputs at one bf16 rounding (BF16_VS_FP32), and two
-    launches on the same inputs bitwise equal."""
+    launches on the same inputs bitwise equal; every SM's shared memory is
+    filled with NaN before each launch, which the kernel must not read."""
     import torch
 
     from repro_torch.kernels import ssd_scan as k4
@@ -755,7 +807,9 @@ def phase_ssd_parity():
     for i, (name, b, s, h, p, n, chunk, dtype) in enumerate(ssd_main_path_cases()
                                                           + SSD_EXTRA_CASES):
         args = ssd_inputs(b, s, h, p, n, dtype, seed=200 + i)
+        k4.fill_shared_memory(float("nan"), 0)
         y, state = k4.ssd_scan(*args, chunk=chunk)
+        k4.fill_shared_memory(float("nan"), 0)
         y2, state2 = k4.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         q = k4.clamp_chunk(chunk, s)
@@ -1212,11 +1266,41 @@ def topk_host_path(probe, logits, k):
     return out
 
 
+def graph_ms(fn, calls=20, replays=5):
+    """Device time per call of ``fn`` with no host work between calls:
+    ``calls`` calls captured in one CUDA graph, replayed ``replays`` times
+    between CUDA events (the launches' own gaps inside a graph included)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
-    """Times of K4 at the Engine's prefill and the 600-token slot prefill, and
-    of K5 at the Engine's prefill (T = 256), beside their bounds and plain
-    versions; K5 also beside softmax + topk (two library calls) and its
-    call path piece by piece (``topk_host_path``)."""
+    """Times of K4 at each of its five serving-path shapes (the Engine's
+    prefill and each slot prefill), and of K5 at the Engine's prefill
+    (T = 256), beside their bounds and plain versions; K4's as a loop, one
+    launch, the profiler's device time, the device time inside a CUDA graph
+    (``graph_ms``) and the host enqueue per call, with the grid
+    (``ssd_scan.schedule``); K5 also beside softmax + topk (two library
+    calls) and its call path piece by piece (``topk_host_path``)."""
     import torch
 
     from repro_torch.kernels import ssd_scan as k4
@@ -1224,11 +1308,10 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
 
     rows = {}
     for name, b, s, h, p, n, chunk, dtype in ssd_main_path_cases():
-        if name not in ("engine_prefill", "slot_prefill_s600"):
-            continue
         args = ssd_inputs(b, s, h, p, n, dtype, seed=7)
         q = k4.clamp_chunk(chunk, s)
         bound_ms, bound_by = ssd_bound(b, s, h, p, n, q, dtype)
+        plan = k4.schedule(b, s, h, p, n, q)
 
         def kernel():
             return k4.ssd_scan(*args, chunk=chunk)
@@ -1238,10 +1321,13 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
         rows[name] = dict(ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 50), library_ms=None,
                           bound_ms=bound_ms, bound_by=bound_by,
                           kernel_single_ms=single_ms(kernel), plain_single_ms=single_ms(plain),
+                          kernel_graph_ms=graph_ms(kernel),
+                          kernel_graph_ms_repeat=graph_ms(kernel),
                           host_enqueue_us=enqueue_us(kernel),
                           **device_times(kernel=kernel, plain=plain))
         emit("time", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q, dtype=dtype,
-             grid=[b * h], smem_bytes=k4.smem_bytes(p, n, q), **rows[name])
+             grid=plan["grids"], smem_bytes=k4.smem_bytes(p, n, q, getattr(torch, dtype)),
+             **rows[name])
 
     name, t, e, k = topk_main_path_cases()[0]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1840,6 +1926,7 @@ def main():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
     phase_k3_sass(infos["flash_attention"])
     exp_f64 = phase_gp_sass(infos["gp_ops"], probe)
+    phase_ssd_sass(infos["ssd_scan"])
 
     errs = phase_parity()
     ssd_errs = phase_ssd_parity()

@@ -4,26 +4,30 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py::_ssd_kernel`` and
 its wrapper ``repro/kernels/ops.py::ssd_scan``; the plain version below is
 the chunked path of ``repro/models/mamba2.py::ssd_chunked`` (``impl="jnp"``).
 
-The CUDA kernel is ``csrc/ssd_scan.cu`` (built by ``kernels.build`` with nvcc
-for ``sm_90a`` and called through ``ctypes``).  One block owns one (batch,
-head) and walks its chunks in order, so the (P, N) state is carried in shared
-memory where the TPU kernel carried it across a sequential grid axis.  It
-reads the model's layouts (x (B, S, H, P), a_log and dt (B, S, H), b and c
-(B, S, N)) with no transpose, and masks the ragged last chunk by the real
-length where the reference pads with dt = 0; the pads are inert there, so
-the final states agree.
+The CUDA source is ``csrc/ssd_scan.cu`` (built by ``kernels.build`` with nvcc
+for ``sm_90a`` and called through ``ctypes``).  It reads the model's layouts
+(x (B, S, H, P), a_log and dt (B, S, H), b and c (B, S, N)) with no
+transpose, and masks the ragged last chunk by the real length where the
+reference pads with dt = 0; the pads are inert there, so the final states
+agree.
+
+bf16, the served path, runs on the tensor cores with the chunks in
+parallel: y blocks (a 64-row tile of a chunk for one head, C·Bᵀ formed in
+registers) and state blocks (each chunk's local state ΔS for 64 columns of
+N) in one launch; with more than one chunk a state pass then forms each
+chunk's incoming state and a second launch of y blocks adds its term.
+``schedule`` gives the grids and ``block_work`` what each block computes,
+as the C code decodes it (the card tests hold the two against the C
+library's own ``ssd_scan_grids``/``ssd_scan_block``); ``ssd_scan_mirror``
+repeats the kernel's pass order and its bf16 high/low splits in plain
+PyTorch, for the tests.  fp32 keeps the first, simple kernel: one block
+per (batch, head) walking the chunks in order on the CUDA cores.  Both
+count one launch per call.
 
 What bounds it on an H100: at mamba2-780m's widths (H 48, P 64, N 128) the
 Engine's prefill (B 4, S 64) moves about 9.7 MB, 6.3 MB of it the fp32 final
-state (2.9 us at 3.35 TB/s), and does about 0.46 GFLOP, so the card's least
-time is the bytes; this version computes in fp32 on the CUDA cores (about
-7 us of FMAs at 67 TFLOP/s) with one block of 8 warps per SM, so the
-shared-memory loads feeding its FMAs bound it.  Its design: 64-row
-tiles of the chunk, visiting only the column tiles j <= i, so the Q x Q score
-matrix (256 KB at Q = 256) never needs to fit shared memory; the decay
-exp(cum_i - cum_j) is computed only where j <= i, where it cannot overflow.
-C·Bᵀ is the same for every head of a (batch, chunk) and is recomputed per
-head here.
+state (2.9 us at 3.35 TB/s), and does about 0.46 GFLOP (0.5 us at the bf16
+tensor-core peak), so the card's least time is the bytes.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from repro_torch.kernels import build
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)    # P, a template parameter of the kernel
 SUPPORTED_STATE_DIMS = (16, 32, 64, 128)   # N
 MAX_CHUNK = 256
-TILE = 64                                  # rows of a chunk tile, fixed in csrc/ssd_scan.cu
+TILE = 64                                  # rows of a chunk tile (csrc: TILE)
+STATE_COLS = 64                            # columns of N per state block (csrc: STATE_COLS)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FITS = set()                              # (device, dtype, P, N, chunk) checked
 
 
 def _pad_seq(t, pad):
@@ -93,24 +99,171 @@ def ssd_scan_plain(x, a_log, b, c, dt, *, chunk):
     return torch.stack(ys, dim=1).reshape(bsz, s, h, p), state
 
 
+def _split(t):
+    """An fp32 tensor as a bf16 high part and the bf16 rounding of the rest
+    (both held in fp32): the two operands the kernel feeds a tensor core."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_scan_mirror(x, a_log, b, c, dt, *, chunk):
+    """The bf16 CUDA kernel's arithmetic in plain PyTorch, for the tests.
+
+    Its pass order: each chunk's local state ΔS = dxᵀ·B from zero, with
+    dx = x·dt·exp(total − cum) split high + low; the state pass
+    state_in(c+1) = state_in(c)·exp(total_c) + ΔS_c; then y per chunk,
+    exp(cum_i)·(c_i · state_in) with state_in split high + low, plus S·X
+    with S = (C·Bᵀ) ∘ exp(cum_i − cum_j) ∘ dt_j (j ≤ i) split high + low.
+    C, B and X are bf16, exact as operands; products accumulate in fp32.
+    ``chunk`` is used as given (the wrapper clamps it first); the ragged
+    last chunk is cut, not padded.  Returns (y bf16, state fp32).
+    """
+    if x.dtype != torch.bfloat16 or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError("ssd_scan_mirror repeats the bf16 kernel: x, b, c must be bfloat16")
+    bsz, s, h, p = x.shape
+    xf, bf, cf = x.float(), b.float(), c.float()
+    spans = [slice(c0, min(s, c0 + chunk)) for c0 in range(0, s, chunk)]
+    cums = [torch.cumsum(a_log[:, sl].float(), dim=1) for sl in spans]       # (B, L, H)
+    ds, totals = [], []
+    for sl, cum in zip(spans, cums):                  # the state blocks
+        total = cum[:, -1]                                                   # (B, H)
+        w = dt[:, sl].float() * torch.exp(total[:, None] - cum)
+        hi, lo = _split(xf[:, sl] * w[..., None])
+        ds.append(torch.einsum("blhp,bln->bhpn", hi, bf[:, sl])
+                  + torch.einsum("blhp,bln->bhpn", lo, bf[:, sl]))
+        totals.append(total)
+    state = torch.zeros_like(ds[0])
+    state_in = []
+    for d, total in zip(ds, totals):                  # the state pass
+        state_in.append(state)
+        state = state * torch.exp(total)[:, :, None, None] + d
+    ys = []
+    for ci, (sl, cum) in enumerate(zip(spans, cums)):  # the y blocks
+        cq, bq, xq = cf[:, sl], bf[:, sl], xf[:, sl]
+        n_rows = cq.shape[1]
+        y = torch.zeros((bsz, n_rows, h, p), dtype=torch.float32, device=x.device)
+        if ci:
+            hi, lo = _split(state_in[ci])
+            y = (torch.einsum("bin,bhpn->bihp", cq, hi)
+                 + torch.einsum("bin,bhpn->bihp", cq, lo)) * torch.exp(cum)[..., None]
+        mask = torch.tril(torch.ones((n_rows, n_rows), dtype=torch.bool, device=x.device))
+        mask = mask[None, :, :, None]
+        diff = torch.where(mask, cum[:, :, None, :] - cum[:, None, :, :], 0.0)
+        sm = torch.einsum("bin,bjn->bij", cq, bq)[..., None] * torch.exp(diff)
+        sm = torch.where(mask, sm * dt[:, sl].float()[:, None, :, :], 0.0)
+        hi, lo = _split(sm)
+        ys.append(y + torch.einsum("bijh,bjhp->bihp", hi, xq)
+                  + torch.einsum("bijh,bjhp->bihp", lo, xq))
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def schedule(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
+    """The bf16 kernel's grid for one call (chunk as clamped): chunks, 64-row
+    tiles per chunk, state blocks per (chunk, head), and each launch's
+    blocks, as ``csrc/ssd_scan.cu::bf16_grids`` counts them (the chunk
+    kernel; with more than one chunk also the state pass and the chunk
+    kernel's y blocks for the chunks after the first)."""
+    nc, n_it, parts = -(-s // chunk), -(-chunk // TILE), -(-n // STATE_COLS)
+    grids = [n_it * bsz * h + nc * bsz * h * parts]
+    if nc > 1:
+        grids += [-(-bsz * h * p * n // 4 // 256), (nc - 1) * n_it * bsz * h]
+    return {"n_chunks": nc, "row_tiles": n_it, "state_parts": parts, "grids": grids}
+
+
+def block_work(bsz: int, s: int, h: int, n: int, chunk: int, launch: int, blk: int):
+    """What block ``blk`` of chunk-kernel launch ``launch`` (0 or 1) computes,
+    as ``csrc/ssd_scan.cu::block_work`` decodes it: ("y", b, c, h, row tile),
+    ("state", b, c, h, part of N), or None for a y block whose row tile
+    starts past its chunk's end.  y blocks come first, their row tiles from
+    the last down; launch 0 holds the first chunk's and every state block."""
+    n_it, parts = -(-chunk // TILE), -(-n // STATE_COLS)
+    n_y = ((-(-s // chunk) - 1) if launch else 1) * n_it * bsz * h
+    if blk < n_y:
+        per_it = n_y // n_it
+        kind, tile, rest = "y", n_it - 1 - blk // per_it, blk % per_it
+    else:
+        kind, tile, rest = "state", (blk - n_y) % parts, (blk - n_y) // parts
+    hh, rest = rest % h, rest // h
+    c = rest // bsz + (launch if kind == "y" else 0)
+    if kind == "y" and tile * TILE >= min(chunk, s - c * chunk):
+        return None
+    return kind, rest % bsz, c, hh, tile
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
-        lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.ssd_scan_fwd.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.ssd_scan_smem_bytes.restype = ctypes.c_int
-        lib.ssd_scan_smem_limit.argtypes = [ctypes.c_int]
-        lib.ssd_scan_smem_limit.restype = ctypes.c_int
-        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.ssd_scan_fwd.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.ssd_scan_fwd.restype = i
+        lib.ssd_scan_config.argtypes = [p]
+        lib.ssd_scan_config.restype = None
+        lib.ssd_scan_grids.argtypes = [i] * 6 + [p]
+        lib.ssd_scan_grids.restype = i
+        lib.ssd_scan_block.argtypes = [i] * 8 + [p]
+        lib.ssd_scan_block.restype = i
+        lib.ssd_scan_smem_bytes.argtypes = [i] * 4
+        lib.ssd_scan_smem_bytes.restype = i
+        lib.ssd_scan_smem_limit.argtypes = [i]
+        lib.ssd_scan_smem_limit.restype = i
+        lib.ssd_scan_fill_smem.argtypes = [ctypes.c_float, i, p]
+        lib.ssd_scan_fill_smem.restype = i
+        lib.ssd_scan_error_string.argtypes = [i]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        out = (ctypes.c_int * 3)()
+        lib.ssd_scan_config(out)
+        if (out[0], out[1]) != (TILE, STATE_COLS):
+            raise RuntimeError(f"csrc/ssd_scan.cu has TILE {out[0]}, STATE_COLS {out[1]}; "
+                               f"ssd_scan.py has {TILE}, {STATE_COLS}")
         lib._typed = True
     return lib
 
 
-def smem_bytes(p: int, n: int, chunk: int) -> int:
-    """Dynamic shared memory one block of the CUDA kernel needs."""
-    return _lib().ssd_scan_smem_bytes(p, n, chunk)
+def kernel_grids(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> list:
+    """Each launch's blocks of a bf16 call, as the C library counts them."""
+    out = (ctypes.c_longlong * 3)()
+    count = _lib().ssd_scan_grids(bsz, s, h, p, n, chunk, out)
+    if not count:
+        raise ValueError(f"unsupported sizes B {bsz}, S {s}, H {h}, P {p}, N {n}, chunk {chunk}")
+    return list(out[:count])
+
+
+def kernel_block_work(bsz, s, h, p, n, chunk, launch, blk):
+    """``block_work`` as the C library decodes it (the kernel's own decode)."""
+    out = (ctypes.c_int * 5)()
+    if _lib().ssd_scan_block(bsz, s, h, p, n, chunk, launch, blk, out):
+        raise ValueError(f"no block {blk} in launch {launch}")
+    kind, bi, c, hh, tile = out
+    return None if kind < 0 else ("y" if kind == 0 else "state", bi, c, hh, tile)
+
+
+def fill_shared_memory(value: float, device: int) -> None:
+    """Write ``value`` over every SM's shared memory on ``device`` (for
+    tests: the next kernel must not read shared memory it did not write)."""
+    lib = _lib()
+    err = lib.ssd_scan_fill_smem(value, device, build.current_stream(device))
+    if err:
+        raise RuntimeError(f"fill_shared_memory failed: cudaError {err} "
+                           f"({lib.ssd_scan_error_string(err).decode()})")
+
+
+def smem_bytes(p: int, n: int, chunk: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory one block of the CUDA kernel needs: the
+    tensor-core kernel's for bf16, the fp32 kernel's for fp32."""
+    return _lib().ssd_scan_smem_bytes(_DTYPE_CODES[dtype], p, n, chunk)
+
+
+def _check_fits(device: int, dtype, p: int, n: int, chunk: int) -> None:
+    """Once per (device, dtype, P, N, chunk): the block's shared memory fits."""
+    key = (device, dtype, p, n, chunk)
+    if key in _FITS:
+        return
+    need = smem_bytes(p, n, chunk, dtype)
+    limit = _lib().ssd_scan_smem_limit(device)
+    if need <= 0 or need > limit:
+        raise RuntimeError(f"ssd_scan needs {need} B of shared memory per block at "
+                           f"P={p}, N={n}, chunk={chunk}; the device allows {limit} B")
+    _FITS.add(key)
 
 
 def clamp_chunk(chunk: int, s: int) -> int:
@@ -119,10 +272,11 @@ def clamp_chunk(chunk: int, s: int) -> int:
 
 
 def _check(x, a_log, b, c, dt, chunk):
+    ts = (x, a_log, b, c, dt)
     if x.dim() != 4 or a_log.dim() != 3 or dt.dim() != 3 or b.dim() != 3 or c.dim() != 3:
         raise ValueError("ssd_scan wants x (B,S,H,P), a_log and dt (B,S,H), b and c (B,S,N)")
     bsz, s, h, p = x.shape
-    if s < 1 or a_log.shape != (bsz, s, h) or dt.shape != (bsz, s, h) or (
+    if s < 1 or not a_log.shape == dt.shape == (bsz, s, h) or (
             b.shape != c.shape or b.shape[:2] != (bsz, s)):
         raise ValueError(f"shapes x {tuple(x.shape)}, a_log {tuple(a_log.shape)}, "
                          f"b {tuple(b.shape)}, c {tuple(c.shape)}, dt {tuple(dt.shape)} "
@@ -137,10 +291,12 @@ def _check(x, a_log, b, c, dt, chunk):
                          f"{list(_DTYPE_CODES)}")
     if a_log.dtype != torch.float32 or dt.dtype != torch.float32:
         raise ValueError(f"a_log and dt must be float32, got {a_log.dtype}/{dt.dtype}")
-    if not all(t.is_contiguous() for t in (x, a_log, b, c, dt)):
+    if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssd_scan wants contiguous inputs")
-    if len({t.device for t in (x, a_log, b, c, dt)}) != 1:
+    if len({t.get_device() for t in ts}) != 1:
         raise ValueError("ssd_scan's inputs lie on different devices")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() | b.data_ptr() | c.data_ptr()) % 16:
+        raise ValueError("ssd_scan wants bf16 x, b, c on 16-byte boundaries (cp.async)")
 
 
 def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
@@ -148,7 +304,9 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
 
     The chunk is clamped to ``min(chunk, max(8, next_pow2(S)))`` as
     ``ops.ssd_scan`` does.  A CPU tensor goes through ``ssd_scan_plain``.  A
-    CUDA tensor launches the CUDA kernel or raises.
+    CUDA tensor launches the CUDA kernels (bf16: the tensor-core kernel,
+    one launch, or three with more than one chunk; fp32: the CUDA-core
+    kernel) or raises; either way ``ssd_scan.launches`` counts one.
     """
     chunk = clamp_chunk(chunk, x.shape[1])
     if x.device.type == "cpu":
@@ -158,17 +316,17 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
     _check(x, a_log, b, c, dt, chunk)
     bsz, s, h, p = x.shape
     n = b.shape[2]
-    lib = _lib()
-    need = lib.ssd_scan_smem_bytes(p, n, chunk)
-    limit = lib.ssd_scan_smem_limit(x.device.index)
-    if need <= 0 or need > limit:
-        raise RuntimeError(f"ssd_scan needs {need} B of shared memory per block at "
-                           f"P={p}, N={n}, chunk={chunk}; the device allows {limit} B")
-    y = torch.empty_like(x)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     dev = x.device.index
+    work = None
+    if x.dtype == torch.bfloat16 and s > chunk:
+        work = a_log.new_empty(bsz * -(-s // chunk) * h * (2 * p * n + 1))
+    _check_fits(dev, x.dtype, p, n, chunk)
+    y = torch.empty_like(x)
+    state = a_log.new_empty((bsz, h, p, n))
+    lib = _lib()
     err = lib.ssd_scan_fwd(x.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
                            dt.data_ptr(), y.data_ptr(), state.data_ptr(),
+                           None if work is None else work.data_ptr(),
                            _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, dev,
                            build.current_stream(dev))
     if err:
@@ -178,4 +336,4 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
     return y, state
 
 
-ssd_scan.launches = 0   # launches of the CUDA kernel in this process
+ssd_scan.launches = 0   # calls that launched the CUDA kernels in this process

@@ -12,13 +12,18 @@ rounding (atol 1e-4, rtol 2**-8).  K3's bf16 path (tensor cores, TMA) is
 also run across its tile and ring edges and twice on the same inputs,
 which must agree bitwise.  K4 (the SSD scan): fp32 at 1e-4
 (``tests/test_kernels.py``'s ``ssd`` tolerance); a bf16 y at 2e-2 and its
-fp32 final state at 1e-4 (both versions compute in fp32 from the same bf16
-inputs).  K5 (top-k gating): ids equal, ties included, and probabilities
-within 1e-6.  K4 and K5 launched twice on the same inputs are bitwise
-equal.  The GP kernels are float64: w, g and
-the new rows of L and L⁻¹ within 1e-10 · max(1, max|ref|), EHVI within 1e-8
-absolute (``tests/test_gp_pallas.py``'s gate), and two launches on the same
-inputs bitwise equal; K2 also at the row counts where its row splits are
+fp32 final state at 1e-4 (the tensor-core kernel feeds its fp32
+intermediates to the tensor cores as bf16 high and low parts), the bf16
+path also against the plain version in fp32 at one bf16 rounding, across
+chunks, odd chunks and head counts and every P and N, with every SM's
+shared memory filled with NaN or inf before a launch, each call counted
+once; the Python grid and block decode equal the C library's.  K5 (top-k
+gating): ids equal, ties included, and probabilities within 1e-6.  K4
+and K5 launched twice on the same inputs are bitwise equal.  The GP
+kernels are float64: w, g and the new rows of L and L⁻¹ within
+1e-10 · max(1, max|ref|), EHVI within 1e-8 absolute
+(``tests/test_gp_pallas.py``'s gate), and two launches on the same inputs
+bitwise equal; K2 also at the row counts where its row splits are
 cut.  K5 also runs on a side stream after a slow producer there, and the
 raw stream accessor the wrappers use must give PyTorch's current stream.
 """
@@ -372,6 +377,87 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+def _check_ssd_bf16(args, chunk, fill=None):
+    """K4's bf16 path against the plain version in bf16 (2e-2) and in fp32
+    (one bf16 rounding), the state at 1e-4; two launches bitwise equal, one
+    count a call.  ``fill``: a value written over every SM's shared memory
+    before each launch, which the kernel must not read."""
+    from repro_torch.kernels import ssd_scan as k4
+
+    q = k4.clamp_chunk(chunk, args[0].shape[1])
+    outs = []
+    for _ in range(2):
+        if fill is not None:
+            k4.fill_shared_memory(fill, args[0].device.index)
+        before = k4.ssd_scan.launches
+        outs.append(k4.ssd_scan(*args, chunk=chunk))
+        assert k4.ssd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    (y, state), (y2, state2) = outs
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    want_y, want_state = k4.ssd_scan_plain(*args, chunk=q)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+    want32, _ = k4.ssd_scan_plain(*(t.float() for t in args), chunk=q)
+    torch.testing.assert_close(y.float(), want32, atol=1e-4, rtol=2 ** -8)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 600, 48, 64, 128, 256),   # 3 chunks, the last ragged: three launches behind one call
+    (6, 600, 5, 64, 128, 64),     # an odd H
+    (1, 100, 4, 64, 128, 8),      # chunk 8: 13 chunks
+] + [(1, 150, 3, p, n, 64) for p in (16, 32, 64, 128) for n in (16, 32, 64, 128)],
+    ids=["s600_b2", "h5", "chunk8"]
+        + [f"p{p}_n{n}" for p in (16, 32, 64, 128) for n in (16, 32, 64, 128)])
+def test_ssd_tensor_core_path(cuda, b, s, h, p, n, chunk):
+    """The bf16 kernel against the plain version in bf16 and fp32; bitwise
+    repeat; one count a call."""
+    _check_ssd_bf16(_ssd(cuda, b, s, h, p, n, torch.bfloat16, seed=s + h + p + n), chunk)
+
+
+@pytest.mark.parametrize("b,s,h,chunk", [
+    (1, 17, 48, 256),    # chunk clamped to 32: one row tile, rows 17..31 past L
+    (1, 33, 48, 256),    # chunk 64
+    (1, 600, 48, 256),   # the last chunk holds 88 rows
+    (1, 100, 4, 8),      # chunk 8: 16-row steps reach past the chunk
+    (4, 600, 48, 75),    # an odd chunk: 8 chunks of 75 rows, two row tiles each
+], ids=["s17", "s33", "s600", "chunk8", "chunk75"])
+def test_ssd_reads_no_stale_shared_memory(cuda, b, s, h, chunk):
+    """Every SM's shared memory is filled with NaN (then with inf) before
+    each launch: the kernel reads only shared memory it wrote, so y and the
+    state stay finite and pass the same gates."""
+    args = _ssd(cuda, b, s, h, 64, 128, torch.bfloat16, seed=s + chunk)
+    for fill in (float("nan"), float("inf")):
+        _check_ssd_bf16(args, chunk, fill=fill)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (4, 64, 48, 64, 128, 256), (1, 17, 48, 64, 128, 32), (1, 600, 48, 64, 128, 256),
+    (6, 600, 5, 64, 128, 64), (1, 100, 4, 64, 128, 8), (4, 600, 8, 64, 128, 75),
+    (2, 520, 6, 128, 32, 128),
+])
+def test_ssd_schedule_matches_the_kernel(cuda, b, s, h, p, n, chunk):
+    """``ssd_scan.schedule`` and ``block_work`` (which the CPU tests check
+    for cover) give the C library's grids and its decode of every block."""
+    from repro_torch.kernels import ssd_scan as k4
+
+    grids = k4.kernel_grids(b, s, h, p, n, chunk)
+    assert grids == k4.schedule(b, s, h, p, n, chunk)["grids"]
+    for launch, grid in enumerate([grids[0]] + grids[2:]):
+        for blk in range(grid):
+            assert (k4.kernel_block_work(b, s, h, p, n, chunk, launch, blk)
+                    == k4.block_work(b, s, h, n, chunk, launch, blk)), (launch, blk)
+
+
+def test_ssd_wrapper_raises_on_misaligned_bf16(cuda):
+    from repro_torch.kernels import ssd_scan as k4
+
+    x, a_log, bb, cc, dt = _ssd(cuda, 1, 16, 2, 16, 16, torch.bfloat16)
+    shifted = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.ssd_scan(shifted, a_log, bb, cc, dt)
 
 
 def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
