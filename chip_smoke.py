@@ -99,12 +99,41 @@ failed check and then prints no result):
    its five serving-path shapes, with its grid, the device time inside a
    CUDA graph (``graph_ms``) and its host enqueue time per call.
 
+11. explore_main (the paper's DSE loop, ``launch.explore``): llama2-7b's
+   generation workload at full width, ``--algorithm bayesopt --gp cuda``,
+   200 samples, 2 clients (each build counts the model on the ``meta``
+   device on the host; the GP runs on the card), twice: the command as
+   given (ParEGO, BayesOpt's default acquisition: K1a/K1b only) and its
+   EHVI variant (the searcher built with ``strategy="ehvi"``, so K2 runs
+   too; the CLI has no flag for it, as the reference's has none).  The GP
+   kernels' counts are set to 0 just before each sweep and read just after,
+   and must equal the GP's ``cuda_appends``/``cuda_scores``, K1a/K1b
+   non-zero in both and K2 in the EHVI variant; wall seconds, evals/s,
+   builds, the shares of wall time in building, in the searcher and in
+   dispatch, tell+ask ms per cycle, the Pareto front's size and
+   hypervolume are printed.  Then, at one client and on one
+   ``--cache-dir`` (the later sweeps reuse the first one's builds), ``--gp
+   cuda`` and ``--gp incremental`` for EHVI and for ParEGO must give
+   identical knob and metric columns per config_id; and mamba2-780m (the
+   ``ssd_chunk`` knob, d = 6) and deepseek-moe-16b (K5 on meta,
+   ``--batch-size 12``: a 12-row tell padded to a fold) at full width, 32
+   samples each, EHVI.  In those one-client and side sweeps every K1a, K1b
+   and K2 call keeps its inputs and output (``recording``), and each is
+   held, after the sweep, against its plain version (1e-10 relative, 1e-8
+   absolute for K2) and against a relaunch on the same inputs (bitwise):
+   the kernels at the shapes this path gives them (d = 7 and 6, capacity
+   64 and 256, tells at B = 1, the 12 -> 16 fold, the live pool and
+   front).  Every sweep's records must be ok, with finite time and energy
+   and power inside the modeled envelope.
+
 Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1378,11 +1407,13 @@ GP_NOISE = 1e-3               # the GP's default observation noise
 GP_REL_TOL = 1e-10            # w, g, new L / L⁻¹ rows: over max(1, max|ref|)
 EHVI_TOL = 1e-8               # absolute, as tests/test_gp_pallas.py
 SEARCH_D = 14                 # tpu_pod_space(n_chips=256) has 14 knobs
+EXPLORE_D = 7                 # llama2-7b's generation space; mamba2-780m's has 6
 SEARCH_CAP, SEARCH_N = 8192, 6250   # pow2 capacity and largest active set
 # (name, cap, n, m, d, ard) of the append cases: n on a tile edge, just past
 # one and at the search path's active set; B = 1, 7 -> 8 and 512; at the
 # fold's 128-row tiles n one before, on and one past an edge, B on both
-# sides of the tell/fold switch (8 | 16), cap below one tile, and n = 0
+# sides of the tell/fold switch (8 | 16), cap below one tile, and n = 0; last
+# the explore sweep's shapes (d = 7 and 6, tells at B = 1, the 12 -> 16 fold)
 GP_APPEND_CASES = [
     ("cap64_first", 64, 0, 7, SEARCH_D, False),
     ("cap64_edge", 64, 48, 7, SEARCH_D, False),
@@ -1401,6 +1432,11 @@ GP_APPEND_CASES = [
     ("odd_tiles_b512", 1024, 384, 512, SEARCH_D, False),
     ("n0_b512", 1024, 0, 512, SEARCH_D, False),
     ("n0_b1", SEARCH_CAP, 0, 1, SEARCH_D, False),
+    ("explore_d7_first_b1", 64, 0, 1, EXPLORE_D, False),
+    ("explore_d7_tell_b1", 256, 150, 1, EXPLORE_D, False),
+    ("explore_d7_fold_b12", 256, 100, 12, EXPLORE_D, False),
+    ("explore_d6_tell_b1_ard", 64, 31, 1, EXPLORE_D - 1, True),
+    ("explore_d6_fold_b12", 64, 20, 12, EXPLORE_D - 1, False),
 ]
 # (name, cap, n, P, d, front points, ard) of the EHVI cases: S = pow2 + 1;
 # n = 0, 1 and one below, on and one past a 64-row step edge (where K2's
@@ -1415,6 +1451,9 @@ GP_EHVI_CASES = [
     ("step_below_p513", SEARCH_CAP, 6143, 513, SEARCH_D, 12, False),
     ("step_on_p511", SEARCH_CAP, 6144, 511, SEARCH_D, 12, False),
     ("step_past_p1_ard", SEARCH_CAP, 6145, 1, SEARCH_D, 12, True),
+    ("explore_d7_s46", 256, 199, 512, EXPLORE_D, 45, False),
+    ("explore_d7_p37", 256, 160, 37, EXPLORE_D, 20, False),
+    ("explore_d6_s9_ard", 64, 31, 512, EXPLORE_D - 1, 8, True),
 ]
 SMALL_FEED, SMALL_BLOCK, SMALL_CYCLES = 1000, 64, 30
 MAIN_CHECKPOINTS = (10_000, 100_000)
@@ -1763,6 +1802,304 @@ def phase_search_main():
     return launches
 
 
+# The paper's explore loop (slice 2b): its command at full width, llama2-7b's
+# generation workload on the reference's modeled 8-chip board.
+EXPLORE_CMD = ["--workload", "llama2-7b", "--shape", "generate", "--algorithm", "bayesopt",
+               "--seed", "0"]
+EXPLORE_SAMPLES = 200
+EXPLORE_SIDE = (("mamba2-780m", []),                         # the ssd_chunk knob
+                ("deepseek-moe-16b", ["--batch-size", "12"]))
+EXPLORE_SIDE_SAMPLES = 32
+
+
+@contextlib.contextmanager
+def searcher(strategy):
+    """``--algorithm bayesopt`` builds BayesOpt with this acquisition: the
+    CLI keeps the reference's flags, which choose none (ParEGO)."""
+    from repro_torch.core.search import ALGORITHMS, BayesOpt
+
+    default = ALGORITHMS["bayesopt"]
+    ALGORITHMS["bayesopt"] = functools.partial(BayesOpt, strategy=strategy)
+    try:
+        yield
+    finally:
+        ALGORITHMS["bayesopt"] = default
+
+
+class Recorder:
+    """``kernel`` (a gp_ops wrapper) as called, keeping a copy of each
+    call's inputs and output in ``calls``.  It takes the wrapper's place
+    among the module's globals, where the wrapper counts its own launches
+    (``gp_w.launches += 1``): the counters read and written through it are
+    the wrapper's."""
+
+    def __init__(self, kernel, calls):
+        self.kernel, self.calls = kernel, calls
+        self.__name__ = kernel.__name__
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.kernel.launches = value
+
+    @property
+    def launches_by_form(self):
+        return self.kernel.launches_by_form
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        def keep(a):
+            return a.clone() if isinstance(a, torch.Tensor) else a
+
+        out = self.kernel(*args, **kw)
+        self.calls.append((self.kernel, tuple(keep(a) for a in args), dict(kw), out.clone()))
+        return out
+
+
+def counted_explore(argv, record=None):
+    """One sweep through ``launch.explore.run`` (``main``'s sweep) with the
+    GP kernels' counts set to 0 just before and read just after; they must
+    equal the GP's own counters.  With a ``record`` list, every K1a, K1b
+    and K2 call of the sweep appends its inputs and output to it."""
+    from repro_torch.kernels import gp_ops
+    from repro_torch.launch import explore
+
+    kernels = (gp_ops.gp_w, gp_ops.gp_g, gp_ops.gp_ehvi)
+    for k in kernels:
+        k.launches = 0
+    for k in kernels[:2]:
+        k.launches_by_form = dict.fromkeys(k.launches_by_form, 0)
+    if record is not None:          # gp_append/gp_fused_ehvi look them up here
+        for k in kernels:
+            setattr(gp_ops, k.__name__, Recorder(k, record))
+    try:
+        res = explore.run(argv)
+    finally:
+        for k in kernels:
+            setattr(gp_ops, k.__name__, k)
+    launches = {k.__name__: k.launches for k in kernels}
+    by_form = {k.__name__: dict(k.launches_by_form) for k in kernels[:2]}
+    # ---- end of the counted run
+    gp = getattr(res.algo, "_gp", None)
+    stats = gp.stats() if hasattr(gp, "stats") else {}     # numpy tiers: none
+    want = {"gp_w": stats.get("cuda_appends", 0), "gp_g": stats.get("cuda_appends", 0),
+            "gp_ehvi": stats.get("cuda_scores", 0)}
+    if launches != want:
+        raise AssertionError(f"explore {argv}: GP kernel launches {launches} do not match "
+                             f"the GP's counters {want}")
+    if record is not None:
+        kept = {k.__name__: sum(c[0] is k for c in record) for k in kernels}
+        if kept != launches:
+            raise AssertionError(f"explore {argv}: recorded calls {kept} != launches "
+                                 f"{launches}")
+    return res, launches, by_form
+
+
+def check_recorded(calls, label):
+    """Each recorded K1a/K1b/K2 call of a sweep against its plain version on
+    the same inputs (K1a/K1b: GP_REL_TOL over max(1, max|plain|); K2:
+    EHVI_TOL absolute) and against a relaunch on them (bitwise).  The
+    relaunches come after the sweep's counts were read."""
+    import torch
+
+    from repro_torch.kernels import gp_ops
+
+    plain = {"gp_w": gp_ops.gp_w_plain, "gp_g": gp_ops.gp_g_plain,
+             "gp_ehvi": gp_ops.gp_ehvi_plain}
+    seen = {}
+    for kernel, args, kw, out in calls:
+        name = kernel.__name__
+        want = plain[name](*args, **kw)
+        again = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err, rel = abs_rel(out, want)
+        ok = (rel <= GP_REL_TOL) if name != "gp_ehvi" else (err <= EHVI_TOL)
+        repeat = bool(torch.equal(again, out))
+        if name == "gp_w":
+            lib, xs, xq, n = args[:4]
+            shape = {"d": xs.shape[1], "cap": xs.shape[0], "B": xq.shape[0],
+                     "form": gp_ops.form(xq.shape[0])}
+        elif name == "gp_g":
+            w, lib, n = args
+            shape = {"cap": w.shape[0], "B": w.shape[1], "form": gp_ops.form(w.shape[1])}
+        else:
+            xq, xs, alpha, n, stair = args[:5]
+            shape = {"d": xs.shape[1], "cap": xs.shape[0], "P": xq.shape[0],
+                     "S": stair.shape[1]}
+        r = seen.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                                   "bitwise_repeat": True, "n": [int(n), int(n)],
+                                   **{k: set() for k in shape}})
+        r["calls"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        r["bitwise_repeat"] &= repeat
+        r["n"] = [min(r["n"][0], int(n)), max(r["n"][1], int(n))]
+        for k, v in shape.items():
+            r[k].add(v)
+        if not (ok and repeat):
+            raise AssertionError(f"{label}: {name} at {shape}, n={int(n)} disagrees with "
+                                 f"its plain version ({err}, {rel}) or with its relaunch "
+                                 f"(bitwise {repeat})")
+    summary = {name: {k: (sorted(v) if isinstance(v, set) else v) for k, v in r.items()}
+               for name, r in seen.items()}
+    emit("explore_kernels", run=label, tol_rel=GP_REL_TOL, ehvi_tol=EHVI_TOL,
+         kernels=summary, ok=True)
+    calls.clear()
+    return summary
+
+
+def device_busy(fn, *args):
+    """fn(*args) under the profiler, tracing the card only (the builds'
+    meta ops would swamp a CPU trace): its result and the device kernel
+    time it recorded, summed and in events (the trace may drop some: §7
+    of PERF.md)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (*out, {"device_busy_ms": sum(e.device_time_total for e in events) / 1e3,
+                   "events": len(events)})
+
+
+def check_sweep(res, n, label):
+    """The sweep's results by the repo's own means: n ok records with finite
+    time, power and energy, power inside the modeled envelope."""
+    import math
+
+    from repro_torch.roofline import hw
+
+    ok = res.store.ok_records()
+    bad = [r for r in res.store.records if r.status != "ok"]
+    if len(ok) != n or bad:
+        raise AssertionError(f"{label}: {len(ok)} ok of {n}; not ok: "
+                             f"{[(r.config_id, r.status, r.metrics) for r in bad[:3]]}")
+    for r in ok:
+        m = r.metrics
+        if not (math.isfinite(m["time_s"]) and m["time_s"] > 0
+                and hw.IDLE_W <= m["power_w"] <= hw.IDLE_W + hw.COMPUTE_W + hw.HBM_W
+                and math.isfinite(m["energy_j"])):
+            raise AssertionError(f"{label}: config {r.config_id} has metrics {m}")
+
+
+def sweep_columns(path):
+    """Knob and metric columns per config_id of an explore CSV."""
+    import csv
+
+    with open(path) as f:
+        return {int(r["config_id"]): {k: v for k, v in r.items()
+                                      if k.startswith(("knob.", "metric."))}
+                for r in csv.DictReader(f)}
+
+
+def explore_summary(res, busy, clients):
+    """The numbers of one timed sweep, as ``emit`` keywords."""
+    from repro_torch.core import hypervolume
+
+    t = res.timings
+    pts = res.store.objective_matrix(["time_s", "power_w"])
+    wall = t["wall_s"]
+    return dict(wall_seconds=wall, evals_per_s=len(pts) / wall, builds=t["builds"],
+                seconds_per_build=t["build_s"] / max(t["builds"], 1),
+                build_share=t["build_s"] / (clients * wall),
+                search_share=(t["ask_s"] + t["tell_s"]) / wall,
+                dispatch_share=t["dispatch_s"] / wall,
+                tell_ask_ms_per_cycle=(t["ask_s"] + t["tell_s"]) / max(t["asks"], 1) * 1e3,
+                asks=t["asks"], tells=t["tells"], timings=t,
+                front_size=len(res.store.pareto_front(["time_s", "power_w"])),
+                hypervolume=float(hypervolume(pts, pts.max(0) * 1.1)),
+                gp=res.algo._gp.stats(), device_busy_share=busy["device_busy_ms"] / 1e3 / wall,
+                device=busy)
+
+
+def phase_explore_main():
+    """The paper's command on the port: llama2-7b, generate, bayesopt, --gp
+    cuda, 200 samples, 2 clients, as given (ParEGO) and as its EHVI variant
+    (K2 runs as well as K1a/K1b); then at one client --gp cuda against --gp
+    incremental (both acquisitions) on one --cache-dir; then mamba2-780m
+    and deepseek-moe-16b at full width.  The one-client and side sweeps'
+    kernel calls are held against their plain versions afterwards."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="explore_main") as tmp:
+        for strategy in ("parego", "ehvi"):
+            argv = EXPLORE_CMD + ["--gp", "cuda", "--clients", "2",
+                                  "--samples", str(EXPLORE_SAMPLES),
+                                  "--out", os.path.join(tmp, f"main_{strategy}.csv")]
+            with searcher(strategy):
+                res, launches, by_form, busy = device_busy(counted_explore, argv)
+            check_sweep(res, EXPLORE_SAMPLES, f"explore_main {strategy}")
+            need = ("gp_w", "gp_g") + (("gp_ehvi",) if strategy == "ehvi" else ())
+            if min(launches[k] for k in need) == 0:
+                raise AssertionError(f"explore_main {strategy}: a GP kernel of the path "
+                                     f"was not launched: {launches}")
+            emit("explore_main", strategy=strategy,
+                 variant="command as given" if strategy == "parego" else "EHVI variant",
+                 argv=argv, launches=launches, launches_by_form=by_form,
+                 **explore_summary(res, busy, 2))
+
+        cache = os.path.join(tmp, "cache")
+        for strategy in ("ehvi", "parego"):
+            cols = {}
+            for gp in ("cuda", "incremental"):
+                out = os.path.join(tmp, f"{strategy}_{gp}.csv")
+                calls = [] if gp == "cuda" else None
+                with searcher(strategy):
+                    res, launches, by_form = counted_explore(
+                        EXPLORE_CMD + ["--gp", gp, "--clients", "1",
+                                       "--samples", str(EXPLORE_SAMPLES), "--cache-dir", cache,
+                                       "--out", out], record=calls)
+                check_sweep(res, EXPLORE_SAMPLES, f"explore_parity {strategy} {gp}")
+                cols[gp] = sweep_columns(out)
+                t = res.timings
+                emit("explore_parity", strategy=strategy, gp=gp, builds=t["builds"],
+                     wall_seconds=t["wall_s"], build_seconds=t["build_s"],
+                     tell_ask_ms_per_cycle=(t["ask_s"] + t["tell_s"]) / max(t["asks"], 1) * 1e3,
+                     launches=launches, launches_by_form=by_form,
+                     recorded=calls is not None,
+                     disk_hits=res.clients[0].cache_info().get("disk_hits"))
+                if calls is not None:
+                    check_recorded(calls, f"explore_parity {strategy}")
+            same = sum(cols["cuda"].get(i) == row for i, row in cols["incremental"].items())
+            emit("explore_parity", strategy=strategy, configs=len(cols["incremental"]),
+                 identical_rows=same)
+            if cols["cuda"] != cols["incremental"]:
+                raise AssertionError(f"explore_parity {strategy}: --gp cuda and --gp "
+                                     f"incremental differ ({same} of "
+                                     f"{len(cols['incremental'])} rows identical)")
+
+        for arch, extra in EXPLORE_SIDE:
+            argv = (["--workload", arch, "--shape", "generate", "--algorithm", "bayesopt",
+                     "--seed", "0", "--gp", "cuda", "--clients", "2",
+                     "--samples", str(EXPLORE_SIDE_SAMPLES),
+                     "--out", os.path.join(tmp, f"{arch}.csv")] + extra)
+            calls = []
+            with searcher("ehvi"):
+                res, launches, by_form = counted_explore(argv, record=calls)
+            check_sweep(res, EXPLORE_SIDE_SAMPLES, f"explore {arch}")
+            if min(launches.values()) == 0:
+                raise AssertionError(f"explore {arch}: a GP kernel was not launched: "
+                                     f"{launches}")
+            t = res.timings
+            emit("explore_side", arch=arch, argv=argv, strategy="ehvi",
+                 wall_seconds=t["wall_s"],
+                 builds=t["builds"], seconds_per_build=t["build_s"] / max(t["builds"], 1),
+                 launches=launches, launches_by_form=by_form,
+                 knobs=sorted({k for r in res.store.records for k in r.knobs}),
+                 time_range=[float(np.min(res.store.objective_matrix(["time_s"]))),
+                             float(np.max(res.store.objective_matrix(["time_s"])))])
+            check_recorded(calls, f"explore {arch}")
+
+
 def gp_bound(kernel, cap, n, width, d, S=0, exp_f64=0):
     """(bound_ms, bound_by): K1a/K1b read the active lower triangle of L⁻¹
     and do 2 flop per (row, active column, B column) of it.  K2 reads the
@@ -1939,6 +2276,7 @@ def main():
     gp_errs = phase_gp_parity()
     phase_search_small()
     gp_launches = phase_search_main()
+    phase_explore_main()
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
 

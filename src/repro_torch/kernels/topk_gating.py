@@ -84,11 +84,15 @@ def topk_gating(logits, k):
 
     Returns (top_p (T, k) fp32, top_ids (T, k) int32).  A CPU tensor goes
     through ``topk_gating_plain``.  A CUDA tensor launches the CUDA kernel or
-    raises.
+    raises.  A ``meta`` tensor (the explore loop's build, which counts and
+    allocates nothing) gets the outputs' shapes and launches nothing.
     """
     dev = logits.device
     if dev.type == "cpu":
         return topk_gating_plain(logits, k)
+    if dev.type == "meta":
+        _check(logits, k)
+        return out_buffers(logits, k)
     if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu, not {dev}")
     _check(logits, k)

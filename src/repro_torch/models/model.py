@@ -5,7 +5,8 @@ with the reference's defaults: ``dtype``, ``attn_impl``, the attention tile
 knobs and ``ssd_impl``, whose ``"cuda"`` (the kernel K4) is the counterpart
 of the reference's ``"pallas"``.  The training, sharding and scan fields
 (``remat``, ``loss_chunks``, ``sp``, ``fsdp``, ``grad_rs``, ``unroll``) are
-added by the slice that first reads them.
+the ones ``core.jconfig.build_flags`` sets; the serving path does not read
+them, and ``launch.build`` reads ``sp`` only for its collective formula.
 """
 from __future__ import annotations
 
@@ -31,6 +32,12 @@ class BuildFlags:
     attn_block_q: int = 256
     attn_block_kv: int = 256
     ssd_impl: str = "jnp"              # jnp (plain chunked path) | cuda (K4)
+    remat: str = "selective"           # none | selective | full (training)
+    loss_chunks: int = 1               # chunked vocab-CE (training)
+    sp: bool = True                    # sequence-parallel residual stream
+    fsdp: bool = True                  # shard params over data axes too
+    grad_rs: bool = False              # reduce-scatter grads (training)
+    unroll: bool = False               # the reference's scan unrolling
 
     @property
     def tdtype(self) -> torch.dtype:

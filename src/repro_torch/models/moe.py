@@ -89,11 +89,14 @@ def moe_ffn(p: MoE, x, cfg):
     slot = torch.where(keep, top_ids * c + rank, e * c)      # drops -> sentinel
 
     # dispatch: each kept assignment owns its slot, so the reference's
-    # scatter-add of the token (and of zeros into the sentinel) is a copy
-    tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
-    buf = torch.zeros((e * c, d), dtype=xt.dtype, device=x.device)
-    buf[slot[keep]] = xt[tok[keep]]
-    buf = buf.reshape(e, c, d)
+    # scatter-add of the token is a copy.  Every assignment is copied, the
+    # dropped ones into the sentinel row e·c, which is then cut off: the
+    # shapes stay static (no boolean mask, so no device-to-host sync, and
+    # the build on the meta device can run it)
+    buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=x.device)
+    buf.index_copy_(0, slot.reshape(t * k),
+                    xt[:, None, :].expand(t, k, d).reshape(t * k, d))
+    buf = buf[:e * c].reshape(e, c, d)
 
     we = p.experts
     y = torch.bmm(F.silu(torch.bmm(buf, we.wi_gate)) * torch.bmm(buf, we.wi_up), we.wo)

@@ -46,6 +46,11 @@ for mode in ("torch", "cuda"):
         algo.tell(c, space.encode(c)[:2] + 0.5)
 assert algo._gp.stats()["cuda_appends"] > 0
 assert gp_ops.gp_w.launches == gp_ops.gp_g.launches == gp_ops.gp_ehvi.launches == 0
+from repro_torch.launch import explore
+store = explore.main(["--workload", "llama2-7b", "--reduced", "--samples", "8",
+                      "--gp", "incremental", "--algorithm", "bayesopt", "--clients", "2",
+                      "--gen-tokens", "8", "--out", sys.argv[1]])
+assert len(store.ok_records()) == 8, [r.status for r in store.records]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 assert not bad, bad
@@ -53,9 +58,10 @@ print("isolated", len(mods))
 """
 
 
-def test_port_imports_neither_jax_nor_repro():
+def test_port_imports_neither_jax_nor_repro(tmp_path):
     env = dict(os.environ, PYTHONPATH=SRC)
-    out = subprocess.run([sys.executable, "-c", _ISOLATION], env=env,
+    out = subprocess.run([sys.executable, "-c", _ISOLATION, str(tmp_path / "explore.csv")],
+                         env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr}"
     assert "isolated" in out.stdout
@@ -155,9 +161,21 @@ def test_k4_k5_cpu_tensors_take_plain_versions(kernel):
 
 @pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating"])
 def test_k4_k5_other_devices_raise(kernel):
-    _, call, _ = _k4_k5_calls("meta")[kernel]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        call()
+    """A meta tensor: K4 raises; K5 returns its outputs' shapes and launches
+    nothing (the explore loop's MoE builds on meta), and still raises for a
+    malformed input there."""
+    wrapper, call, plain = _k4_k5_calls("meta")[kernel]
+    if kernel == "ssd_scan":
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
+        return
+    before = wrapper.launches
+    got = call()
+    assert wrapper.launches == before
+    for g, w in zip(got, _k4_k5_calls("cpu")[kernel][2]()):
+        assert g.device.type == "meta" and g.shape == w.shape and g.dtype == w.dtype
+    with pytest.raises(ValueError, match="float32 logits"):
+        k5.topk_gating(torch.empty((4, 8), device="meta", dtype=torch.bfloat16), 2)
 
 
 def test_chip_smoke_refuses_without_a_card():
