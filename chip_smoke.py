@@ -125,6 +125,35 @@ failed check and then prints no result):
    64 and 256, tells at B = 1, the 12 -> 16 fold, the live pool and
    front).  Every sweep's records must be ok, with finite time and energy
    and power inside the modeled envelope.
+12. explore_durable (durable sweeps): first ``capacity_probe``, a cuda-tier
+   BayesOpt snapshotted at 31 rows on a 64-row capacity and restored with
+   and without the snapshot's capacity, each against the live searcher
+   bitwise (only the first must agree).  Then the paper's command as given,
+   ``--gp cuda --clients 1 --samples 200 --checkpoint-dir D`` on
+   explore_main's build cache, run as ``python -m
+   repro_torch.launch.explore`` in a subprocess with ``--chaos-crash-at``
+   70 (past two snapshots at ``--checkpoint-every 25``) and 10 (before any:
+   the whole log replays); each must exit with 42.  Each is resumed with
+   ``--resume`` in a fresh process (this script's ``--resume-child``
+   mode), which must exit with 0, counts its K1a/K1b/K2 launches (equal to
+   the GP's counters, K1a/K1b above zero) and holds each recorded call
+   against its plain version; it reports the replay (events, late tells,
+   ask mismatches, from a snapshot or not).  The CSV must have 200 rows,
+   ids 0-199 once each, every row bit-identical (``float.hex`` of every
+   metric) to explore_parity's uninterrupted ParEGO ``--gp cuda`` sweep.
+13. serve_explore_main (the multi-tenant service): ``launch.serve_explore
+   --workload llama2-7b --clients 2 --fleet-cache serve --tenants T.json
+   --checkpoint-root R`` on a fresh cache directory, three tenants
+   (``SERVE_TENANTS``: BayesOpt ``--gp cuda`` 100 samples at weight 2, PAL
+   ``--gp cuda`` 50, random 50).  Each tenant's ids are 0..n-1 once each;
+   every row's metrics equal the same knobs' in explore_main's CSVs where
+   they appear there, and a re-evaluation on explore_main's builds for
+   every row; the fleet builds each sw fingerprint exactly once; the GP
+   tenants launch K1a/K1b (launches equal to the tenants' GP counters) and
+   every recorded call is held against its plain version.  Then the same
+   tenants at one client with ``--gp cuda`` and ``--gp incremental`` must
+   give every tenant the same rows.
+   Both phases print their wall seconds and the nvidia-smi line.
 
 Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +167,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2019,85 +2049,429 @@ def explore_summary(res, busy, clients):
                 device=busy)
 
 
-def phase_explore_main():
+def phase_explore_main(tmp):
     """The paper's command on the port: llama2-7b, generate, bayesopt, --gp
     cuda, 200 samples, 2 clients, as given (ParEGO) and as its EHVI variant
     (K2 runs as well as K1a/K1b); then at one client --gp cuda against --gp
     incremental (both acquisitions) on one --cache-dir; then mamba2-780m
     and deepseek-moe-16b at full width.  The one-client and side sweeps'
-    kernel calls are held against their plain versions afterwards."""
-    import tempfile
+    kernel calls are held against their plain versions afterwards.  The
+    sweeps' CSVs and build cache stay in ``tmp`` for the later phases;
+    returns their paths."""
+    import numpy as np
+
+    for strategy in ("parego", "ehvi"):
+        argv = EXPLORE_CMD + ["--gp", "cuda", "--clients", "2",
+                              "--samples", str(EXPLORE_SAMPLES),
+                              "--out", os.path.join(tmp, f"main_{strategy}.csv")]
+        with searcher(strategy):
+            res, launches, by_form, busy = device_busy(counted_explore, argv)
+        check_sweep(res, EXPLORE_SAMPLES, f"explore_main {strategy}")
+        need = ("gp_w", "gp_g") + (("gp_ehvi",) if strategy == "ehvi" else ())
+        if min(launches[k] for k in need) == 0:
+            raise AssertionError(f"explore_main {strategy}: a GP kernel of the path "
+                                 f"was not launched: {launches}")
+        emit("explore_main", strategy=strategy,
+             variant="command as given" if strategy == "parego" else "EHVI variant",
+             argv=argv, launches=launches, launches_by_form=by_form,
+             **explore_summary(res, busy, 2))
+
+    cache = os.path.join(tmp, "cache")
+    for strategy in ("ehvi", "parego"):
+        cols = {}
+        for gp in ("cuda", "incremental"):
+            out = os.path.join(tmp, f"{strategy}_{gp}.csv")
+            calls = [] if gp == "cuda" else None
+            with searcher(strategy):
+                res, launches, by_form = counted_explore(
+                    EXPLORE_CMD + ["--gp", gp, "--clients", "1",
+                                   "--samples", str(EXPLORE_SAMPLES), "--cache-dir", cache,
+                                   "--out", out], record=calls)
+            check_sweep(res, EXPLORE_SAMPLES, f"explore_parity {strategy} {gp}")
+            cols[gp] = sweep_columns(out)
+            t = res.timings
+            emit("explore_parity", strategy=strategy, gp=gp, builds=t["builds"],
+                 wall_seconds=t["wall_s"], build_seconds=t["build_s"],
+                 tell_ask_ms_per_cycle=(t["ask_s"] + t["tell_s"]) / max(t["asks"], 1) * 1e3,
+                 launches=launches, launches_by_form=by_form,
+                 recorded=calls is not None,
+                 disk_hits=res.clients[0].cache_info().get("disk_hits"))
+            if calls is not None:
+                check_recorded(calls, f"explore_parity {strategy}")
+        same = sum(cols["cuda"].get(i) == row for i, row in cols["incremental"].items())
+        emit("explore_parity", strategy=strategy, configs=len(cols["incremental"]),
+             identical_rows=same)
+        if cols["cuda"] != cols["incremental"]:
+            raise AssertionError(f"explore_parity {strategy}: --gp cuda and --gp "
+                                 f"incremental differ ({same} of "
+                                 f"{len(cols['incremental'])} rows identical)")
+
+    for arch, extra in EXPLORE_SIDE:
+        argv = (["--workload", arch, "--shape", "generate", "--algorithm", "bayesopt",
+                 "--seed", "0", "--gp", "cuda", "--clients", "2",
+                 "--samples", str(EXPLORE_SIDE_SAMPLES),
+                 "--out", os.path.join(tmp, f"{arch}.csv")] + extra)
+        calls = []
+        with searcher("ehvi"):
+            res, launches, by_form = counted_explore(argv, record=calls)
+        check_sweep(res, EXPLORE_SIDE_SAMPLES, f"explore {arch}")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"explore {arch}: a GP kernel was not launched: "
+                                 f"{launches}")
+        t = res.timings
+        emit("explore_side", arch=arch, argv=argv, strategy="ehvi",
+             wall_seconds=t["wall_s"],
+             builds=t["builds"], seconds_per_build=t["build_s"] / max(t["builds"], 1),
+             launches=launches, launches_by_form=by_form,
+             knobs=sorted({k for r in res.store.records for k in r.knobs}),
+             time_range=[float(np.min(res.store.objective_matrix(["time_s"]))),
+                         float(np.max(res.store.objective_matrix(["time_s"])))])
+        check_recorded(calls, f"explore {arch}")
+    return {"cache": cache, "parego_cuda": os.path.join(tmp, "parego_cuda.csv"),
+            "csvs": [os.path.join(tmp, f) for f in sorted(os.listdir(tmp))
+                     if f.endswith(".csv") and not f.startswith(("mamba", "deepseek"))]}
+
+
+# The paper's command made durable (slice 6): crashed twice, resumed in a
+# fresh process each time.  70 lands past two snapshots at the default
+# --checkpoint-every 25; 10 before any, so the whole log replays.
+DURABLE_CRASHES = (70, 10)
+EXPLORE_CHECKPOINT_EVERY = 25          # launch.explore's default --checkpoint-every
+CRASH_EXIT = 42
+CHILD_TIMEOUT_S = 600
+# The multi-tenant service on the paper's workload: three tenants on two
+# clients sharing one fleet store.
+SERVE_TENANTS = [{"name": "bayesopt", "algorithm": "bayesopt", "gp": "cuda", "samples": 100,
+                  "weight": 2},
+                 {"name": "pal", "algorithm": "pal", "gp": "cuda", "samples": 50},
+                 {"name": "random", "algorithm": "random", "samples": 50}]
+
+
+def float_hex(v):
+    """A CSV cell as ``float.hex`` where it is a number (a metric may name
+    the bottleneck instead)."""
+    try:
+        return float(v).hex()
+    except ValueError:
+        return v
+
+
+def hexed(rows):
+    """``sweep_columns`` rows with every numeric metric as ``float.hex``."""
+    return {cid: {k: (float_hex(v) if k.startswith("metric.") else v) for k, v in r.items()}
+            for cid, r in rows.items()}
+
+
+def csv_ids(path):
+    import csv
+
+    with open(path) as f:
+        return [int(r["config_id"]) for r in csv.DictReader(f)]
+
+
+def port_env():
+    return dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+
+
+def resume_child(argv_json):
+    """``--resume-child ARGV``: one resumed sweep in this fresh process,
+    through ``counted_explore`` (its K1a/K1b/K2 launches equal the GP's
+    counters; every call recorded and held against its plain version);
+    prints what the parent reads as its last line."""
+    argv = json.loads(argv_json)
+    calls = []
+    res, launches, by_form = counted_explore(argv, record=calls)
+    recorded = check_recorded(calls, "explore_durable resume")
+    info = dict(res.resume or {})
+    info["outstanding"] = sorted(info.get("outstanding", ()))   # the ids re-submitted
+    print(json.dumps({"resume_child": {"launches": launches, "launches_by_form": by_form,
+                                       "replay": info, "rows": len(res.store.records),
+                                       "timings": res.timings, "recorded": recorded}}),
+          flush=True)
+    return 0
+
+
+def capacity_probe():
+    """A cuda-tier BayesOpt (ParEGO, the paper's space) snapshotted at 31
+    rows on a 64-row capacity (a 5-row fold padded to 8), restored with the
+    snapshot's capacity and without it (at 32 rows, as a state without the
+    key restores): each one's posterior means and deviations of a pool and
+    its next picks against the live searcher's, bitwise.  Only the restore
+    with the capacity must agree; the other shows whether the capacity
+    reaches the card's results."""
+    import copy
+    import pickle
 
     import numpy as np
 
-    with tempfile.TemporaryDirectory(prefix="explore_main") as tmp:
-        for strategy in ("parego", "ehvi"):
-            argv = EXPLORE_CMD + ["--gp", "cuda", "--clients", "2",
-                                  "--samples", str(EXPLORE_SAMPLES),
-                                  "--out", os.path.join(tmp, f"main_{strategy}.csv")]
-            with searcher(strategy):
-                res, launches, by_form, busy = device_busy(counted_explore, argv)
-            check_sweep(res, EXPLORE_SAMPLES, f"explore_main {strategy}")
-            need = ("gp_w", "gp_g") + (("gp_ehvi",) if strategy == "ehvi" else ())
-            if min(launches[k] for k in need) == 0:
-                raise AssertionError(f"explore_main {strategy}: a GP kernel of the path "
-                                     f"was not launched: {launches}")
-            emit("explore_main", strategy=strategy,
-                 variant="command as given" if strategy == "parego" else "EHVI variant",
-                 argv=argv, launches=launches, launches_by_form=by_form,
-                 **explore_summary(res, busy, 2))
+    from repro_torch.configs import get_arch
+    from repro_torch.core import BayesOpt
+    from repro_torch.launch.explore import generation_space
 
-        cache = os.path.join(tmp, "cache")
-        for strategy in ("ehvi", "parego"):
-            cols = {}
-            for gp in ("cuda", "incremental"):
-                out = os.path.join(tmp, f"{strategy}_{gp}.csv")
-                calls = [] if gp == "cuda" else None
-                with searcher(strategy):
-                    res, launches, by_form = counted_explore(
-                        EXPLORE_CMD + ["--gp", gp, "--clients", "1",
-                                       "--samples", str(EXPLORE_SAMPLES), "--cache-dir", cache,
-                                       "--out", out], record=calls)
-                check_sweep(res, EXPLORE_SAMPLES, f"explore_parity {strategy} {gp}")
-                cols[gp] = sweep_columns(out)
-                t = res.timings
-                emit("explore_parity", strategy=strategy, gp=gp, builds=t["builds"],
-                     wall_seconds=t["wall_s"], build_seconds=t["build_s"],
-                     tell_ask_ms_per_cycle=(t["ask_s"] + t["tell_s"]) / max(t["asks"], 1) * 1e3,
-                     launches=launches, launches_by_form=by_form,
-                     recorded=calls is not None,
-                     disk_hits=res.clients[0].cache_info().get("disk_hits"))
-                if calls is not None:
-                    check_recorded(calls, f"explore_parity {strategy}")
-            same = sum(cols["cuda"].get(i) == row for i, row in cols["incremental"].items())
-            emit("explore_parity", strategy=strategy, configs=len(cols["incremental"]),
-                 identical_rows=same)
-            if cols["cuda"] != cols["incremental"]:
-                raise AssertionError(f"explore_parity {strategy}: --gp cuda and --gp "
-                                     f"incremental differ ({same} of "
-                                     f"{len(cols['incremental'])} rows identical)")
+    space = generation_space(get_arch(ARCH), 8)
 
-        for arch, extra in EXPLORE_SIDE:
-            argv = (["--workload", arch, "--shape", "generate", "--algorithm", "bayesopt",
-                     "--seed", "0", "--gp", "cuda", "--clients", "2",
-                     "--samples", str(EXPLORE_SIDE_SAMPLES),
-                     "--out", os.path.join(tmp, f"{arch}.csv")] + extra)
-            calls = []
-            with searcher("ehvi"):
-                res, launches, by_form = counted_explore(argv, record=calls)
-            check_sweep(res, EXPLORE_SIDE_SAMPLES, f"explore {arch}")
-            if min(launches.values()) == 0:
-                raise AssertionError(f"explore {arch}: a GP kernel was not launched: "
-                                     f"{launches}")
-            t = res.timings
-            emit("explore_side", arch=arch, argv=argv, strategy="ehvi",
-                 wall_seconds=t["wall_s"],
-                 builds=t["builds"], seconds_per_build=t["build_s"] / max(t["builds"], 1),
-                 launches=launches, launches_by_form=by_form,
-                 knobs=sorted({k for r in res.store.records for k in r.knobs}),
-                 time_range=[float(np.min(res.store.objective_matrix(["time_s"]))),
-                             float(np.max(res.store.objective_matrix(["time_s"])))])
-            check_recorded(calls, f"explore {arch}")
+    def objective(c):
+        x = space.encode(c)
+        return np.array([1.0 + x[0] + 0.5 * x[3], 2.0 - x[1] + 0.3 * x[4]])
+
+    def mk():
+        return BayesOpt(space, seed=0, n_init=6, pool_size=128, gp_mode="cuda",
+                        device=GP_DEVICE)
+
+    live = mk()
+    for size in (6, 5, 5, 5, 5, 5):
+        for c in live.ask(size):
+            live.tell(c, objective(c))
+    asked = live.ask(5)
+    state = pickle.loads(pickle.dumps(live.state_dict()))
+    legacy = copy.deepcopy(state)
+    del legacy["attrs"]["_gp_state"]["cap"]
+    pool = np.stack([space.encode(c)
+                     for c in space.sample_batch(np.random.default_rng(1), 256)])
+    ys = np.stack(live.history_y)
+    searchers = {"live": live}
+    for label, st in (("with_cap", state), ("without_cap", legacy)):
+        searchers[label] = mk()
+        searchers[label].load_state(st)
+    out = {}
+    for label, s in searchers.items():
+        gp = s._gp
+        mu, sig = gp.fit_y_multi(ys).predict_multi(pool)
+        for c in asked:
+            s.tell(c, objective(c))
+        out[label] = {"n": gp._n, "cap": gp._cap, "mu": mu, "sig": sig, "picks": s.ask(5)}
+    want = out["live"]
+    report = {}
+    for label in ("with_cap", "without_cap"):
+        got = out[label]
+        report[label] = {"n": got["n"], "cap": got["cap"],
+                         "max_abs_diff": float(max(np.abs(got["mu"] - want["mu"]).max(),
+                                                   np.abs(got["sig"] - want["sig"]).max())),
+                         "bitwise": bool(np.array_equal(got["mu"], want["mu"])
+                                         and np.array_equal(got["sig"], want["sig"])),
+                         "same_picks": got["picks"] == want["picks"]}
+    emit("capacity_probe", live_n=want["n"], live_cap=want["cap"], **report)
+    if not (report["with_cap"]["bitwise"] and report["with_cap"]["same_picks"]):
+        raise AssertionError(f"capacity_probe: a restore at the snapshot's capacity "
+                             f"differs from the live searcher: {report}")
+    return report
+
+
+def phase_explore_durable(explored, tmp):
+    """The paper's command as given, ``--gp cuda --clients 1 --samples 200
+    --checkpoint-dir D`` on explore_main's build cache, crashed by
+    ``--chaos-crash-at`` in a subprocess (exit code 42) at each of
+    ``DURABLE_CRASHES`` and resumed in a fresh process (``--resume``,
+    exit code 0) that counts and records the GP kernels: 200 rows, ids
+    0-199 once each, every row bit-identical (``float.hex``) to
+    explore_parity's uninterrupted ParEGO ``--gp cuda`` CSV."""
+    t_phase = time.perf_counter()
+    want = hexed(sweep_columns(explored["parego_cuda"]))
+    probe = capacity_probe()
+    for crash_at in DURABLE_CRASHES:
+        out = os.path.join(tmp, f"durable_{crash_at}.csv")
+        argv = EXPLORE_CMD + ["--gp", "cuda", "--clients", "1",
+                              "--samples", str(EXPLORE_SAMPLES), "--cache-dir", explored["cache"],
+                              "--checkpoint-dir", os.path.join(tmp, f"durable_{crash_at}"),
+                              "--out", out]
+        t0 = time.perf_counter()
+        crash = subprocess.run([sys.executable, "-m", "repro_torch.launch.explore", *argv,
+                                "--chaos-crash-at", str(crash_at)], env=port_env(), cwd=REPO,
+                               capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+        crash_s = time.perf_counter() - t0
+        if crash.returncode != CRASH_EXIT:
+            raise AssertionError(f"explore_durable: the crash at {crash_at} exited "
+                                 f"{crash.returncode}, not {CRASH_EXIT}:\n"
+                                 f"{crash.stdout[-3000:]}{crash.stderr[-3000:]}")
+        rows_at_crash = len(csv_ids(out))
+        t0 = time.perf_counter()
+        resumed = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-child",
+                                  json.dumps(argv + ["--resume"])], env=port_env(), cwd=REPO,
+                                 capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+        resume_s = time.perf_counter() - t0
+        if resumed.returncode != 0:
+            raise AssertionError(f"explore_durable: the resume after {crash_at} exited "
+                                 f"{resumed.returncode}:\n{resumed.stdout[-3000:]}"
+                                 f"{resumed.stderr[-3000:]}")
+        child = json.loads(resumed.stdout.strip().splitlines()[-1])["resume_child"]
+        ids = csv_ids(out)
+        got = hexed(sweep_columns(out))
+        same = sum(got.get(i) == row for i, row in want.items())
+        launches, replay = child["launches"], child["replay"]
+        emit("explore_durable", crash_at=crash_at, crash_exit=crash.returncode,
+             crash_seconds=crash_s, rows_at_crash=rows_at_crash, resume_exit=resumed.returncode,
+             resume_seconds=resume_s, replay={k: replay.get(k) for k in
+                                              ("n_events", "n_late_tells", "n_ask_mismatch",
+                                               "from_snapshot", "outstanding", "next_id")},
+             rows=len(ids), distinct_ids=len(set(ids)), identical_rows=same,
+             launches=launches, launches_by_form=child["launches_by_form"],
+             resume_timings=child["timings"])
+        if sorted(ids) != list(range(EXPLORE_SAMPLES)):
+            raise AssertionError(f"explore_durable {crash_at}: {len(ids)} rows, "
+                                 f"{len(set(ids))} distinct ids; want 0..{EXPLORE_SAMPLES - 1} "
+                                 f"once each")
+        if got != want:
+            raise AssertionError(f"explore_durable {crash_at}: {same} of {len(want)} rows "
+                                 f"bit-identical to the uninterrupted --gp cuda sweep")
+        if min(launches["gp_w"], launches["gp_g"]) == 0:
+            raise AssertionError(f"explore_durable {crash_at}: the resumed process launched "
+                                 f"no K1a/K1b: {launches}")
+        if replay.get("from_snapshot") is not (crash_at > EXPLORE_CHECKPOINT_EVERY):
+            raise AssertionError(f"explore_durable {crash_at}: replay {replay}")
+    emit("explore_durable_phase", wall_seconds=time.perf_counter() - t_phase,
+         capacity_probe=probe)
+    print(nvidia_smi_line(), flush=True)
+
+
+def serve_rows(out_dir, tenants):
+    return {t["name"]: sweep_columns(os.path.join(out_dir, t["name"] + ".csv")) for t in tenants}
+
+
+def counted_serve(argv, record=None):
+    """``launch.serve_explore.main(argv)`` with the GP kernels' counts set
+    to 0 just before and read just after; they must equal the sum of the
+    GP tenants' own counters.  With ``record``, every K1a/K1b/K2 call of
+    the run is kept there."""
+    from repro_torch.kernels import gp_ops
+    from repro_torch.launch import serve_explore
+
+    kernels = (gp_ops.gp_w, gp_ops.gp_g, gp_ops.gp_ehvi)
+    for k in kernels:
+        k.launches = 0
+    if record is not None:
+        for k in kernels:
+            setattr(gp_ops, k.__name__, Recorder(k, record))
+    try:
+        served = serve_explore.main(argv)
+    finally:
+        for k in kernels:
+            setattr(gp_ops, k.__name__, k)
+    launches = {k.__name__: k.launches for k in kernels}
+    # ---- end of the counted run
+    per_tenant = {}
+    for name, sweep in served.service._sweeps.items():
+        gp = getattr(sweep.search, "_gp", None)
+        stats = gp.stats() if hasattr(gp, "stats") else {}
+        per_tenant[name] = {"gp_w": stats.get("cuda_appends", 0),
+                            "gp_g": stats.get("cuda_appends", 0),
+                            "gp_ehvi": stats.get("cuda_scores", 0)}
+    want = {k: sum(t[k] for t in per_tenant.values()) for k in launches}
+    if launches != want:
+        raise AssertionError(f"serve_explore {argv}: GP kernel launches {launches} do not "
+                             f"match the tenants' GP counters {per_tenant}")
+    return served, launches, per_tenant
+
+
+def phase_serve_explore_main(explored, tmp):
+    """``python -m repro_torch.launch.serve_explore --workload llama2-7b
+    --clients 2 --fleet-cache serve --tenants T.json --checkpoint-root R`` on
+    a fresh cache directory, three tenants (``SERVE_TENANTS``): each
+    tenant's ids 0..n-1 once each; every row's metrics equal to the same
+    knobs' in explore_main's CSVs where they appear there, and to a
+    re-evaluation on explore_main's builds for every row; fleet-wide builds
+    equal to the distinct sw fingerprints touched; K1a/K1b launched for the
+    GP tenants, every recorded call held against its plain version.  Then
+    the same tenants at one client under ``--gp cuda`` and ``--gp
+    incremental`` must give each tenant the same rows."""
+    from repro_torch.core import JClient, JConfig, TestConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import explore
+
+    t_phase = time.perf_counter()
+    spec = os.path.join(tmp, "tenants.json")
+    with open(spec, "w") as f:
+        json.dump(SERVE_TENANTS, f)
+    out = os.path.join(tmp, "serve_main")
+    argv = ["--workload", ARCH, "--tenants", spec, "--clients", "2", "--fleet-cache", "serve",
+                   "--checkpoint-root", os.path.join(tmp, "serve_ck"), "--out-dir", out,
+                   "--cache-dir", os.path.join(tmp, "serve_cache")]
+    calls = []
+    served, launches, per_tenant = counted_serve(argv, record=calls)
+    rows = serve_rows(out, SERVE_TENANTS)
+    for t in SERVE_TENANTS:
+        ids = csv_ids(os.path.join(out, t["name"] + ".csv"))
+        if sorted(ids) != list(range(t["samples"])):
+            raise AssertionError(f"serve_explore_main {t['name']}: ids {sorted(ids)[:5]}... "
+                                 f"({len(ids)} rows, {len(set(ids))} distinct); want "
+                                 f"0..{t['samples'] - 1} once each")
+        if any(r.status != "ok" for r in served.service._sweeps[t["name"]].store.records):
+            raise AssertionError(f"serve_explore_main {t['name']}: a row is not ok")
+    # the same knobs' metrics: explore_main's CSVs, and a re-evaluation on
+    # its builds (disk hits in explore_parity's one-client cache)
+    known = {}
+    for path in explored["csvs"]:
+        for r in sweep_columns(path).values():
+            knobs = tuple(sorted((k, v) for k, v in r.items() if k.startswith("knob.")))
+            known[knobs] = {k: v for k, v in r.items() if k.startswith("metric.")}
+    args = explore.parse_args(EXPLORE_CMD)
+    space = explore.generation_space(get_arch(ARCH), args.chips)
+    jc = JConfig(space, n_chips=args.chips)
+    judge = JClient(jc, explore.make_build_fn(args, jc),
+                    cache_dir=os.path.join(explored["cache"], "client0"))
+    in_csv = reevaluated = 0
+    fps = set()
+    for name, sweep in served.service._sweeps.items():
+        for rec in sweep.store.records:
+            tc = TestConfig(rec.config_id, ARCH, "generate", rec.knobs)
+            fps.add(jc.cache_key(tc))
+            row = {f"metric.{k}": v for k, v in rec.metrics.items()}
+            csv_row = rows[name][rec.config_id]
+            knobs = tuple(sorted((k, v) for k, v in csv_row.items() if k.startswith("knob.")))
+            if knobs in known:
+                in_csv += 1
+                if hexed({0: known[knobs]}) != hexed({0: {k: csv_row[k] for k in known[knobs]}}):
+                    raise AssertionError(f"serve_explore_main {name} {rec.config_id}: metrics "
+                                         f"{csv_row} differ from explore_main's {known[knobs]}")
+            again = judge.evaluate(tc)
+            reevaluated += 1
+            if {k: float_hex(v) for k, v in again["metrics"].items()} != \
+                    {k[7:]: float_hex(v) for k, v in row.items()}:
+                raise AssertionError(f"serve_explore_main {name} {rec.config_id}: metrics "
+                                     f"{rec.metrics} differ from a re-evaluation "
+                                     f"{again['metrics']}")
+    builds = sum(c.n_compiled for c in served.clients)
+    gp_tenants = [t["name"] for t in SERVE_TENANTS if t.get("gp") == "cuda"]
+    emit("serve_explore_main", argv=argv, wall_seconds=served.wall_s,
+         evals=sum(len(s.store.records) for s in served.service._sweeps.values()),
+         builds=builds, fingerprints=len(fps), fleet=served.fleet_stats,
+         client_cache=[c.cache_info() for c in served.clients], launches=launches,
+         per_tenant_launches=per_tenant, rows_in_explore_main_csvs=in_csv,
+         rows_reevaluated=reevaluated, judge_builds=judge.n_compiled,
+         tenants={n: {"state": s.state, "completed": s.completed}
+                  for n, s in served.service._sweeps.items()})
+    if builds != len(fps):
+        raise AssertionError(f"serve_explore_main: {builds} builds for {len(fps)} sw "
+                             f"fingerprints (the fleet store must build each once)")
+    for name in gp_tenants:
+        if min(per_tenant[name]["gp_w"], per_tenant[name]["gp_g"]) == 0:
+            raise AssertionError(f"serve_explore_main: tenant {name} launched no K1a/K1b: "
+                                 f"{per_tenant}")
+    check_recorded(calls, "serve_explore_main")
+    cols = {}
+    for gp in ("cuda", "incremental"):
+        out1 = os.path.join(tmp, f"serve_one_{gp}")
+        spec1 = os.path.join(tmp, f"tenants_{gp}.json")
+        with open(spec1, "w") as f:      # the GP tenants on this tier
+            json.dump([dict(t, gp=gp) if "gp" in t else t for t in SERVE_TENANTS], f)
+        served1, launches1, _ = counted_serve(
+            ["--workload", ARCH, "--tenants", spec1, "--clients", "1", "--gp", gp,
+             "--fleet-cache", "serve", "--checkpoint-root", os.path.join(tmp, f"serve_ck_{gp}"),
+             "--out-dir", out1, "--cache-dir", explored["cache"]])
+        cols[gp] = serve_rows(out1, SERVE_TENANTS)
+        emit("serve_explore_parity", gp=gp, wall_seconds=served1.wall_s, launches=launches1,
+             builds=sum(c.n_compiled for c in served1.clients))
+        if (min(launches1["gp_w"], launches1["gp_g"]) > 0) != (gp == "cuda"):
+            raise AssertionError(f"serve_explore_parity --gp {gp}: GP kernel launches "
+                                 f"{launches1}")
+    same = {n: sum(cols["cuda"][n].get(i) == r for i, r in cols["incremental"][n].items())
+            for n in cols["incremental"]}
+    emit("serve_explore_parity", identical_rows=same,
+         rows={n: len(r) for n, r in cols["incremental"].items()})
+    if cols["cuda"] != cols["incremental"]:
+        raise AssertionError(f"serve_explore_parity: --gp cuda and --gp incremental tenants "
+                             f"differ ({same} identical rows)")
+    emit("serve_explore_phase", wall_seconds=time.perf_counter() - t_phase)
+    print(nvidia_smi_line(), flush=True)
 
 
 def gp_bound(kernel, cap, n, width, d, S=0, exp_f64=0):
@@ -2276,7 +2650,10 @@ def main():
     gp_errs = phase_gp_parity()
     phase_search_small()
     gp_launches = phase_search_main()
-    phase_explore_main()
+    with tempfile.TemporaryDirectory(prefix="explore") as tmp:
+        explored = phase_explore_main(tmp)
+        phase_explore_durable(explored, tmp)
+        phase_serve_explore_main(explored, tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
 
@@ -2289,4 +2666,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-child"]:       # explore_durable's resumed process
+        sys.exit(resume_child(sys.argv[2]))
     sys.exit(main())

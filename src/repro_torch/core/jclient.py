@@ -1,9 +1,6 @@
 """JClient — the device-side worker (paper §III, Algorithm 1).
 
-A copy of ``repro/core/jclient.py`` without its fleet tier
-(``fleet_mode``: a peer artifact cache mediated by the host's
-``repro/core/fleet.py``), which comes with ROADMAP slice 6; a ``fleet_mode``
-other than None raises ``NotImplementedError``.
+A copy of ``repro/core/jclient.py``, fleet tier included.
 
 Capabilities, mirroring the paper:
   1. configure the device + workload from a received testConfig (JConfig);
@@ -37,6 +34,21 @@ Readers therefore never see a torn file on a POSIX filesystem; on
 filesystems with weaker rename semantics (NFS) an unreadable read is
 retried once after a short sleep — the concurrent writer has usually
 finished by then — and only then counted as a miss.
+
+Fleet tier (``fleet_mode``)
+---------------------------
+With ``fleet_mode`` set (``"serve"`` | ``"relay"``) and a transport
+attached, a miss in *both* local tiers asks the fleet before compiling:
+the client pushes an ``ARTIFACT_QUERY`` (same content address as the disk
+tier) up its result socket and briefly blocks for the host's reply —
+a pickled ``BuildResult`` blob from a peer (hit: unpickle, adopt into both
+local tiers), or ``ARTIFACT_MISS`` (this client is now the fingerprint's
+designated compiler — build, then announce).  In ``serve`` mode the
+announcement carries the blob (the host caches and serves it); in
+``relay`` mode it is residency-only and the host relays an
+``ARTIFACT_FETCH`` back here when a peer needs it.  Config frames that
+arrive while the client waits are backlogged and evaluated afterwards, so
+the fleet wait never drops work.  See ``repro_torch.core.fleet``.
 
 Invalidation rules: the address covers everything that determines the
 artifact — the jconfig identity (design-space knob names/values/kinds +
@@ -85,9 +97,12 @@ import numpy as np
 
 from repro_torch.core.jconfig import JConfig, TestConfig
 from repro_torch.core.jmeasure import DEFAULT_MEASURES, JMeasure
-from repro_torch.core.transport import (BATCH_CMD, BATCH_COLS_CMD,
-                                        CLIENT_GOODBYE, CLIENT_HELLO,
-                                        ClientTransport, unframe_batch)
+from repro_torch.core.transport import (ARTIFACT_CHUNK, ARTIFACT_CMDS,
+                                  ARTIFACT_FETCH, ARTIFACT_MISS,
+                                  ARTIFACT_PUT, ARTIFACT_QUERY, BATCH_CMD,
+                                  BATCH_COLS_CMD, CLIENT_GOODBYE,
+                                  CLIENT_HELLO, ChunkAssembler,
+                                  ClientTransport, chunk_blob, unframe_batch)
 from repro_torch.roofline.analysis import Artifact
 
 BuildResult = Tuple[Artifact, Dict]
@@ -95,6 +110,8 @@ BuildResult = Tuple[Artifact, Dict]
 # bump when BuildResult semantics change behaviourally for the same address
 # (the content hash cannot see the body of build_fn)
 _DISK_CACHE_VERSION = 1
+
+_FLEET_MODES = (None, "serve", "relay")
 
 
 class JClient:
@@ -105,11 +122,12 @@ class JClient:
                  client_id: int = 0,
                  cache_size: int = 64,
                  cache_dir: Optional[str] = None,
-                 fleet_mode: Optional[str] = None):
-        if fleet_mode is not None:
-            raise NotImplementedError(
-                "the fleet artifact tier is not ported yet (ROADMAP slice 6: "
-                "durability, elasticity, service)")
+                 fleet_mode: Optional[str] = None,
+                 fleet_timeout_s: float = 30.0,
+                 fleet_chunk_bytes: int = 1 << 20):
+        if fleet_mode not in _FLEET_MODES:
+            raise ValueError(f"fleet_mode must be one of {_FLEET_MODES}, "
+                             f"got {fleet_mode!r}")
         self.jconfig = jconfig
         self.build_fn = build_fn
         self.measures = tuple(measures)
@@ -124,6 +142,20 @@ class JClient:
         self._disk_hits = 0
         self._disk_misses = 0
         self._disk_stores = 0
+        self.fleet_mode = fleet_mode
+        self.fleet_timeout_s = fleet_timeout_s
+        self.fleet_chunk_bytes = fleet_chunk_bytes
+        self._fleet_hits = 0
+        self._fleet_misses = 0
+        self._fleet_puts = 0
+        self._fleet_bytes_in = 0
+        self._fleet_bytes_out = 0
+        self._fleet_rx = ChunkAssembler()
+        self._addr_key: Dict[str, tuple] = {}   # content addr -> cache_key
+        self._rx_backlog: List[dict] = []       # frames deferred by a wait
+        # keys a prefetch wave already got ARTIFACT_MISS for: this client
+        # is their designated compiler, _artifact must not re-query
+        self._fleet_skip: set = set()
         self.n_evaluated = 0
         self.n_compiled = 0
         if cache_dir is not None:
@@ -131,7 +163,7 @@ class JClient:
 
     # -- persistent tier (content-addressed pickles, see module docstring) ----
     def _addr(self, key: tuple) -> str:
-        """Content address of the disk tier."""
+        """Content address shared by the disk tier and the fleet store."""
         return hashlib.sha256(
             repr((self.jconfig.identity(), key)).encode("utf-8")).hexdigest()
 
@@ -206,11 +238,29 @@ class JClient:
                 self._disk_hits += 1
             else:
                 self._disk_misses += 1
+        fetched = False
+        if built is None and self.fleet_mode is not None \
+                and self.transport is not None:
+            if key in self._fleet_skip:
+                # a prefetch wave already asked and this client was made
+                # the designated compiler (miss counted there): build
+                self._fleet_skip.discard(key)
+            else:
+                built = self._fleet_fetch(key)
+                fetched = built is not None
+                if fetched:
+                    self._fleet_hits += 1
+                else:
+                    self._fleet_misses += 1
         if built is None:
             built = self.build_fn(tc)
             self.n_compiled += 1
             if self.cache_dir is not None:
                 self._disk_store(key, built)
+            if self.fleet_mode is not None and self.transport is not None:
+                self._fleet_announce(key, built)
+        elif fetched and self.cache_dir is not None:
+            self._disk_store(key, built)    # adopt the peer's blob locally
         self._cache_insert(key, built)
         return built
 
@@ -232,7 +282,223 @@ class JClient:
             info.update({"disk_hits": self._disk_hits,
                          "disk_misses": self._disk_misses,
                          "disk_stores": self._disk_stores})
+        if self.fleet_mode is not None:
+            info.update({"fleet_hits": self._fleet_hits,
+                         "fleet_misses": self._fleet_misses,
+                         "fleet_puts": self._fleet_puts,
+                         "fleet_bytes_in": self._fleet_bytes_in,
+                         "fleet_bytes_out": self._fleet_bytes_out})
         return info
+
+    # -- fleet tier (host-mediated peer cache, see repro_torch.core.fleet) ----------
+    def _payload_blob(self, key: tuple, built: BuildResult) -> Optional[bytes]:
+        """The disk-tier payload, pickled — the unit the fleet moves."""
+        try:
+            return pickle.dumps({"v": _DISK_CACHE_VERSION, "key": repr(key),
+                                 "built": built})
+        except Exception:
+            return None       # live device buffers etc.: memory-only
+
+    def _accept_blob(self, key: tuple, msg: dict) -> Optional[BuildResult]:
+        blob = msg.get("blob")
+        if not isinstance(blob, (bytes, bytearray)):
+            return None
+        self._fleet_bytes_in += len(blob)
+        try:
+            payload = pickle.loads(bytes(blob))
+        except Exception:
+            return None
+        if (isinstance(payload, dict)
+                and payload.get("v") == _DISK_CACHE_VERSION
+                and payload.get("key") == repr(key)):
+            return payload["built"]
+        return None
+
+    def _fleet_fetch(self, key: tuple) -> Optional[BuildResult]:
+        """Query the host for a peer's artifact; block up to
+        ``fleet_timeout_s`` for the verdict.  Any non-matching frame pulled
+        while waiting (queued config chunks, other artifact traffic) is
+        backlogged for ``serve`` to process afterwards — the wait never
+        drops work."""
+        addr = self._addr(key)
+        self._addr_key[addr] = key
+        try:
+            self.transport.push({"cmd": ARTIFACT_QUERY, "addr": addr,
+                                 "fp": repr(key),
+                                 "client_id": self.client_id})
+        except Exception:
+            return None
+        deadline = time.monotonic() + self.fleet_timeout_s
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return None
+            msg = self.transport.pull(min(remaining, 0.05))
+            if msg is None:
+                continue
+            cmd = msg.get("cmd")
+            if cmd == ARTIFACT_CHUNK and msg.get("addr") == addr:
+                done = self._fleet_rx.feed(msg)
+                if done is None:
+                    continue
+                msg, cmd = done, ARTIFACT_PUT
+            if cmd == ARTIFACT_PUT and msg.get("addr") == addr:
+                return self._accept_blob(key, msg)
+            if cmd == ARTIFACT_MISS and msg.get("addr") == addr:
+                if msg.get("spec"):
+                    continue      # stale passive reply: not an assignment
+                return None       # this client is the designated compiler
+            if cmd in ARTIFACT_CMDS:
+                # other artifact traffic is handled INLINE, not backlogged:
+                # a relayed ARTIFACT_FETCH for an artifact this client holds
+                # must be answered now — two clients each waiting on a blob
+                # the other one holds would otherwise deadlock until their
+                # fleet timeouts (serving a fetch only reads local tiers,
+                # so it cannot recurse into another fleet wait)
+                self._on_artifact(msg)
+                continue
+            self._rx_backlog.append(msg)
+
+    def _fleet_prefetch(self, keys: Sequence[tuple]) -> None:
+        """Pipeline fleet queries for every fingerprint an incoming batch
+        needs but no local tier holds: one wave of ``ARTIFACT_QUERY``s,
+        then one collect loop — k fetches cost ~one host round trip
+        instead of k serial ones.
+
+        Prefetch queries are *passive* (``spec: True``): the host serves a
+        cached blob or parks us in a waiter list, but never assigns
+        compile duty (that would pile several fingerprints' compiles onto
+        whichever client's wave lands first) and always answers at once —
+        a ``spec`` MISS means "nothing to serve yet, move on", after which
+        the per-group ``_fleet_fetch`` does the active query.  Blobs that
+        arrive after the wave (an in-flight compile we joined as waiter)
+        are adopted by ``_on_artifact``.
+        """
+        want: Dict[str, tuple] = {}
+        for key in keys:
+            if key in self._cache or key in self._fleet_skip:
+                continue
+            if self.cache_dir is not None \
+                    and os.path.exists(self._disk_path(key)):
+                continue                   # the disk tier will hit
+            addr = self._addr(key)
+            self._addr_key[addr] = key
+            want[addr] = key
+        if not want:
+            return
+        try:
+            for addr, key in want.items():
+                self.transport.push({"cmd": ARTIFACT_QUERY, "addr": addr,
+                                     "fp": repr(key), "spec": True,
+                                     "client_id": self.client_id})
+        except Exception:
+            return
+        outstanding = set(want)
+        deadline = time.monotonic() + self.fleet_timeout_s
+        while outstanding:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            msg = self.transport.pull(min(remaining, 0.05))
+            if msg is None:
+                continue
+            cmd = msg.get("cmd")
+            addr = msg.get("addr")
+            if cmd == ARTIFACT_CHUNK and addr in outstanding:
+                done = self._fleet_rx.feed(msg)
+                if done is None:
+                    continue
+                msg, cmd = done, ARTIFACT_PUT
+            if cmd == ARTIFACT_PUT and addr in outstanding:
+                outstanding.discard(addr)
+                key = want[addr]
+                built = self._accept_blob(key, msg)
+                if built is not None:
+                    self._fleet_hits += 1
+                    if self.cache_dir is not None:
+                        self._disk_store(key, built)
+                    self._cache_insert(key, built)
+            elif cmd == ARTIFACT_MISS and addr in outstanding:
+                outstanding.discard(addr)
+                if not msg.get("spec"):
+                    # a stale *active* MISS: we hold compile duty for it
+                    self._fleet_misses += 1
+                    self._fleet_skip.add(want[addr])
+                    return   # compile duty first; peers are waiting on us
+            elif cmd in ARTIFACT_CMDS:
+                self._on_artifact(msg)   # incl. relayed fetches: see above
+            else:
+                self._rx_backlog.append(msg)
+
+    def _fleet_announce(self, key: tuple, built: BuildResult) -> None:
+        """Tell the host about a fresh compile: blob attached in ``serve``
+        mode, residency-only in ``relay`` mode."""
+        addr = self._addr(key)
+        self._addr_key[addr] = key
+        base = {"addr": addr, "fp": repr(key), "client_id": self.client_id}
+        try:
+            if self.fleet_mode == "serve":
+                blob = self._payload_blob(key, built)
+                if blob is None:
+                    return
+                self._fleet_bytes_out += len(blob)
+                for frame in chunk_blob(base, blob, self.fleet_chunk_bytes):
+                    self.transport.push(frame)
+            else:
+                self.transport.push(dict(base, cmd=ARTIFACT_PUT))
+            self._fleet_puts += 1
+        except Exception:
+            pass              # announcements are best-effort
+
+    def _on_artifact(self, msg: dict) -> None:
+        """Handle an artifact frame outside a fetch wait: relay-mode fetch
+        requests, and late/prefetch PUTs (adopted into the local tiers)."""
+        cmd = msg.get("cmd")
+        if cmd == ARTIFACT_CHUNK:
+            done = self._fleet_rx.feed(msg)
+            if done is None:
+                return
+            msg, cmd = done, ARTIFACT_PUT
+        addr = msg.get("addr")
+        if cmd == ARTIFACT_FETCH and isinstance(addr, str):
+            self._serve_fetch(addr)
+        elif cmd == ARTIFACT_PUT and isinstance(addr, str):
+            key = self._addr_key.get(addr)
+            if key is None or key in self._cache:
+                return
+            built = self._accept_blob(key, msg)
+            if built is not None:
+                self._fleet_hits += 1
+                if self.cache_dir is not None:
+                    self._disk_store(key, built)
+                self._cache_insert(key, built)
+        # stray ARTIFACT_MISS frames (e.g. after a timed-out wait): ignore
+
+    def _serve_fetch(self, addr: str) -> None:
+        """Relay mode: the host asks for a blob this client supposedly
+        holds.  Serve it from LRU or disk; apologize with ``gone`` if both
+        tiers lost it (the host drops the residency claim)."""
+        key = self._addr_key.get(addr)
+        built = None
+        if key is not None:
+            built = self._cache.get(key)
+            if built is None and self.cache_dir is not None:
+                built = self._disk_load(key)
+        blob = self._payload_blob(key, built) if built is not None else None
+        base = {"addr": addr, "client_id": self.client_id}
+        if key is not None:
+            base["fp"] = repr(key)
+        try:
+            if blob is None:
+                self.transport.push(dict(base, cmd=ARTIFACT_PUT,
+                                         status="gone"))
+                return
+            self._fleet_bytes_out += len(blob)
+            self._fleet_puts += 1
+            for frame in chunk_blob(base, blob, self.fleet_chunk_bytes):
+                self.transport.push(frame)
+        except Exception:
+            pass
 
     # -- single evaluation -------------------------------------------------
     def evaluate(self, tc: TestConfig) -> dict:
@@ -275,6 +541,8 @@ class JClient:
         groups: Dict[tuple, List[int]] = {}
         for i, tc in enumerate(tcs):
             groups.setdefault(self.jconfig.cache_key(tc), []).append(i)
+        if self.fleet_mode is not None and self.transport is not None:
+            self._fleet_prefetch(list(groups))
 
         for key, idxs in groups.items():
             g0 = time.monotonic()
@@ -387,16 +655,24 @@ class JClient:
                              "drain": bool(drain)})
 
     # -- Algorithm 1, JCLIENT procedure ---------------------------------------
+    def _pull(self, timeout: float) -> Optional[dict]:
+        """Transport pull that honours the fleet-wait backlog: frames
+        deferred by ``_fleet_fetch`` come back first, in arrival order."""
+        if self._rx_backlog:
+            return self._rx_backlog.pop(0)
+        return self.transport.pull(timeout)
+
     def _drain_pending(self, first: dict):
         """Coalesce every already-queued batch frame behind ``first``.
 
         A pipelined host keeps ≥2 chunks in this client's queue; evaluating
         them as one batch shares the group-by-compile sweep.  Returns
-        (batch_frames, scalar_msgs, stop_seen) in arrival order.
+        (batch_frames, scalar_msgs, stop_seen) in arrival order.  Artifact
+        frames are handled inline (they carry no work to evaluate).
         """
         frames, scalars, stop = [first], [], False
         while True:
-            nxt = self.transport.pull(0.0)
+            nxt = self._pull(0.0)
             if nxt is None:
                 break
             cmd = nxt.get("cmd")
@@ -405,6 +681,8 @@ class JClient:
                 break
             if cmd in (BATCH_CMD, BATCH_COLS_CMD):
                 frames.append(nxt)
+            elif cmd in ARTIFACT_CMDS:
+                self._on_artifact(nxt)
             else:
                 scalars.append(nxt)
         return frames, scalars, stop
@@ -414,7 +692,7 @@ class JClient:
         served = 0
         idle = 0.0
         while True:
-            msg = self.transport.pull(poll_s)
+            msg = self._pull(poll_s)
             if msg is None:
                 idle += poll_s
                 if idle_limit_s is not None and idle >= idle_limit_s:
@@ -423,6 +701,9 @@ class JClient:
             idle = 0.0
             if msg.get("cmd") == "stop":
                 return served
+            if msg.get("cmd") in ARTIFACT_CMDS:
+                self._on_artifact(msg)
+                continue
             if msg.get("cmd") in (BATCH_CMD, BATCH_COLS_CMD):
                 frames, scalars, stop = self._drain_pending(msg)
                 tcs = [TestConfig.from_wire(d)

@@ -20,7 +20,7 @@ Dispatch policies
 -----------------
 ``eager``     — depth-1: a client receives its next chunk only after fully
   answering its current one (the batched barrier; ``batch_size=None``
-  with this policy is the scalar protocol).
+  with this policy is the seed's scalar protocol).
 ``pipelined`` — depth-N buffering (default 2): the scheduler keeps every
   healthy client's config queue ``pipeline_depth`` chunks deep, so the next
   chunk is already sitting in the client's transport queue when it finishes
@@ -83,10 +83,27 @@ EWMAs are mirrored too ("queued" kind): the slow client has not begun them,
 so a copy elsewhere is pure insurance.  ``stats()`` reports the queued-kind
 dispatch and win counters separately (``spec_queued*``).
 
-The reference's fair-share multi-tenancy (per-tenant queues, ``add_tenant``)
-and its fleet artifact-store consult (``fleet_resident_fn``) come with
-ROADMAP slice 6: ``add_tenant`` and a ``submit`` to a tenant other than
-``"default"`` raise ``NotImplementedError``.
+Fair-share multi-tenancy
+------------------------
+``submit(tc, tenant=...)`` routes configs into per-tenant pending queues
+(``add_tenant`` registers a weight, a priority class, and an optional
+in-flight cap; a ``"default"`` tenant always exists, so single-sweep
+callers see the old behaviour unchanged — bit for bit).  Every dispatched
+chunk draws from exactly ONE tenant's queue, picked per chunk opportunity
+by (highest priority class, then largest deficit): a deficit-weighted
+round-robin where dispatching a chunk of estimated cost
+``size × cost_ewma`` charges the tenant ``cost / weight`` credits, so each
+tenant's share of fleet wall-clock converges to its weight within a
+priority class regardless of per-config cost.  A tenant going idle keeps
+its deficit clamped to the most-favoured active tenant's on reactivation,
+so banked idle time cannot be spent monopolizing the fleet later.
+Priorities preempt *queue position only* — in-flight work is never
+revoked.  Per-tenant in-flight caps bound how many of a tenant's configs
+may occupy the fleet at once, and a tenant's retries rejoin its own
+queue, so a quarantine storm or a giant space in one tenant cannot starve
+another.  Affinity, the fleet store, and speculation stay fleet-global:
+tenants share one artifact-cache namespace (keyed on
+``JConfig.identity()``) and warm each other's compiles for free.
 
 The scheduler is transport-free and clock-injectable: the host pushes the
 chunks ``next_dispatches()`` returns, feeds every pulled result to
@@ -105,7 +122,6 @@ from repro_torch.core.jconfig import TestConfig
 
 POLICIES = ("eager", "pipelined")
 AFFINITIES = ("off", "prefer", "strict")
-SLICE_6 = "{} is not ported yet (ROADMAP slice 6: durability, elasticity, service)"
 
 
 class CacheShadow:
@@ -182,15 +198,19 @@ class Chunk:
 
     __slots__ = ("chunk_id", "client", "deadline", "awaiting", "size",
                  "started_at", "started_seq", "fps", "mirror_id", "mirror_of",
-                 "spec_kind")
+                 "spec_kind", "tenant")
 
     def __init__(self, chunk_id: int, client: int, deadline: float,
-                 awaiting: Set[int], started_at: Optional[float]):
+                 awaiting: Set[int], started_at: Optional[float],
+                 tenant: str = "default"):
         self.chunk_id = chunk_id
         self.client = client
         self.deadline = deadline
         self.awaiting = awaiting
         self.size = len(awaiting)
+        # which tenant's queue this chunk was assembled from (single-tenant
+        # chunks keep fair-share accounting and wire tagging trivial)
+        self.tenant = tenant
         # when the client could begin working on it: dispatch time for the
         # pipeline head, else set when the predecessor chunk completes (None
         # while queued behind another chunk)
@@ -245,6 +265,52 @@ class ClientSlot:
             self.depth_target - len(self.chunks), 0)
 
 
+class TenantState:
+    """Per-tenant fair-share state: the pending queue plus the DWRR books.
+
+    ``deficit`` is the tenant's credit balance: dispatching a chunk of
+    estimated cost ``size × cost_ewma`` charges ``cost / weight``, and the
+    scheduler always serves the eligible tenant with the *largest* deficit
+    (within the highest non-empty priority class), so long-run fleet time
+    splits by weight however lopsided per-config costs are.  ``cost_ewma``
+    is the tenant's own observed per-config wall-time average (seeded 1.0
+    until the first chunk completes).  ``max_inflight`` caps how many of
+    the tenant's configs may be in flight at once (None = uncapped);
+    ``priority`` classes are served strictly high-to-low, but only for
+    *queue position* — a lower-priority chunk already dispatched is never
+    revoked.
+    """
+
+    __slots__ = ("name", "seq", "queue", "weight", "priority", "max_inflight",
+                 "deficit", "inflight", "cost_ewma", "n_submitted",
+                 "n_dispatched", "n_done")
+
+    def __init__(self, name: str, seq: int, *, weight: float = 1.0,
+                 priority: int = 0, max_inflight: Optional[int] = None):
+        self.name = name
+        self.seq = seq                       # registration order: tie-break
+        self.queue: Deque[Tuple[TestConfig, int]] = deque()
+        self.weight = weight
+        self.priority = priority
+        self.max_inflight = max_inflight
+        self.deficit = 0.0
+        self.inflight = 0                    # configs in the inflight table
+        self.cost_ewma: Optional[float] = None
+        self.n_submitted = 0
+        self.n_dispatched = 0
+        self.n_done = 0
+
+    def headroom(self) -> Optional[int]:
+        """Configs this tenant may still put in flight (None = unbounded)."""
+        if self.max_inflight is None:
+            return None
+        return max(self.max_inflight - self.inflight, 0)
+
+    def eligible(self) -> bool:
+        return bool(self.queue) and (self.max_inflight is None
+                                     or self.inflight < self.max_inflight)
+
+
 class DispatchScheduler:
     def __init__(self, client_ids: Sequence[int], *,
                  policy: str = "eager",
@@ -262,6 +328,8 @@ class DispatchScheduler:
                  speculate_frac: Optional[float] = None,
                  speculate_slow_mult: Optional[float] = None,
                  pipeline_depth: Optional[int] = None,
+                 fleet_resident_fn: Optional[Callable[[Hashable],
+                                                      bool]] = None,
                  clock: Callable[[], float] = time.monotonic):
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
@@ -294,6 +362,12 @@ class DispatchScheduler:
         self.fingerprint_fn = fingerprint_fn
         self.speculate_frac = speculate_frac
         self.speculate_slow_mult = speculate_slow_mult
+        # fleet artifact store consult: fingerprint -> "resident somewhere
+        # in the fleet" (host blob cache / peer disk / compile in flight).
+        # A fleet-resident group costs a fetch, not a compile, wherever it
+        # lands — so it neither binds placement nor consumes the
+        # one-fresh-compile-group-per-chunk budget
+        self.fleet_resident_fn = fleet_resident_fn
         self.clock = clock
         # before any EWMA exists: the static batch_size, or a modest seed
         # chunk when only a budget was given (it adapts from there)
@@ -304,8 +378,12 @@ class DispatchScheduler:
         self._client_cache_size = client_cache_size
         self.slots: Dict[int, ClientSlot] = {
             c: ClientSlot(c, depth, client_cache_size) for c in client_ids}
-        # submitted configs not yet dispatched, each with its retries left
-        self.pending: Deque[Tuple[TestConfig, int]] = deque()
+        # per-tenant pending queues; the "default" tenant always exists so
+        # single-sweep callers never see the tenancy layer
+        self._tenant_seq = itertools.count()
+        self.tenants: Dict[str, TenantState] = {
+            "default": TenantState("default", next(self._tenant_seq))}
+        self._tenant_of: Dict[int, str] = {}  # config_id -> tenant name
         self.inflight: Dict[int, dict] = {}   # config_id -> {tc, chunk, retries}
         self.chunks: Dict[int, Chunk] = {}
         self.quarantined: Set[int] = set()
@@ -323,6 +401,7 @@ class DispatchScheduler:
         self.n_fp_chunks = 0        # chunks whose fingerprints were known
         self.n_affine_chunks = 0    # ... placed on a client already holding
         #                             their leading fingerprint
+        self.n_fleet_rides = 0      # fresh groups taken free: fleet-resident
         self.n_speculated = 0       # mirror chunks dispatched (all kinds)
         self.n_spec_wins_primary = 0
         self.n_spec_wins_mirror = 0
@@ -335,8 +414,88 @@ class DispatchScheduler:
         # stays transport-free
         self.wire_stats_fn: Optional[Callable[[], Dict]] = None
 
-    def add_tenant(self, name: str, **_) -> None:
-        raise NotImplementedError(SLICE_6.format("multi-tenant fair share"))
+    # -- tenancy --------------------------------------------------------------
+    @property
+    def pending(self) -> Deque[Tuple[TestConfig, int]]:
+        """Back-compat view of the pending work.
+
+        With one tenant (the default single-sweep case) this IS that
+        tenant's live deque; with several it is a merged read-only snapshot
+        in tenant-registration order.
+        """
+        if len(self.tenants) == 1:
+            return next(iter(self.tenants.values())).queue
+        merged: Deque[Tuple[TestConfig, int]] = deque()
+        for t in self.tenants.values():
+            merged.extend(t.queue)
+        return merged
+
+    def _total_pending(self) -> int:
+        return sum(len(t.queue) for t in self.tenants.values())
+
+    def add_tenant(self, name: str, *, weight: float = 1.0,
+                   priority: int = 0,
+                   max_inflight: Optional[int] = None) -> TenantState:
+        """Register (or re-tune) a tenant's fair-share parameters."""
+        if weight <= 0:
+            raise ValueError(f"tenant weight must be > 0, got {weight!r}")
+        if max_inflight is not None and max_inflight < 1:
+            raise ValueError(
+                f"max_inflight must be >= 1, got {max_inflight!r}")
+        t = self.tenants.get(name)
+        if t is None:
+            t = TenantState(name, next(self._tenant_seq), weight=weight,
+                            priority=priority, max_inflight=max_inflight)
+            self.tenants[name] = t
+        else:
+            t.weight = weight
+            t.priority = priority
+            t.max_inflight = max_inflight
+        return t
+
+    def cancel_tenant(self, name: str) -> Tuple[int, int]:
+        """Drop a tenant's queued work and orphan its in-flight configs.
+
+        Returns ``(n_queued_dropped, n_inflight_orphaned)``.  In-flight
+        configs are removed from the inflight table — the clients still
+        evaluating them will answer, and those answers ride the existing
+        duplicate path (chunk bookkeeping completes, no result surfaces).
+        The tenant stays registered (idle) so its counters remain readable.
+        """
+        t = self.tenants.get(name)
+        if t is None:
+            return (0, 0)
+        n_queued = len(t.queue)
+        for tc, _ in t.queue:
+            self._fp.pop(tc.config_id, None)
+            self._tenant_of.pop(tc.config_id, None)
+        t.queue.clear()
+        orphans = [cid for cid, owner in self._tenant_of.items()
+                   if owner == name and cid in self.inflight]
+        for cid in orphans:
+            del self.inflight[cid]
+            self._fp.pop(cid, None)
+            self._tenant_of.pop(cid, None)
+            t.inflight -= 1
+        return (n_queued, len(orphans))
+
+    def tenant_of(self, config_id: int) -> str:
+        """Which tenant a submitted-but-unfinished config belongs to."""
+        return self._tenant_of.get(config_id, "default")
+
+    def _tenant_order(self, headroom_only: bool = True) -> List[TenantState]:
+        """Tenants in serve order: priority class high-to-low, then largest
+        deficit, then registration order (deterministic tie-break)."""
+        pool = [t for t in self.tenants.values()
+                if (t.eligible() if headroom_only else t.queue)]
+        pool.sort(key=lambda t: (-t.priority, -t.deficit, t.seq))
+        return pool
+
+    def _charge(self, tenant: TenantState, n_configs: int) -> None:
+        cost = n_configs * (tenant.cost_ewma or 1.0)
+        tenant.deficit -= cost / tenant.weight
+        tenant.inflight += n_configs
+        tenant.n_dispatched += n_configs
 
     # -- sizing ---------------------------------------------------------------
     def chunk_size_for(self, slot: ClientSlot) -> int:
@@ -357,22 +516,60 @@ class DispatchScheduler:
         capacity = sum((s.open_chunks() + lookahead) * self.chunk_size_for(s)
                        for s in self.slots.values()
                        if not s.quarantined and not s.draining)
-        return max(capacity - len(self.pending), 0)
+        return max(capacity - self._total_pending(), 0)
+
+    def want_for(self, tenant: str, lookahead: int = 0) -> int:
+        """Fresh configs ``tenant`` should submit to claim its fair share.
+
+        The multi-tenant analogue of ``want()``: the fleet's open capacity
+        is split by weight among tenants that currently have work (queued
+        or in flight) plus the asking tenant, so one tenant flooding the
+        queues cannot zero out another's intake.  An in-flight cap bounds
+        the answer to roughly one pipeline's worth past the cap.
+        """
+        t = self.tenants.get(tenant)
+        if t is None:
+            return 0
+        capacity = sum((s.open_chunks() + lookahead) * self.chunk_size_for(s)
+                       for s in self.slots.values()
+                       if not s.quarantined and not s.draining)
+        live = [x for x in self.tenants.values()
+                if x.queue or x.inflight or x is t]
+        total_w = sum(x.weight for x in live)
+        share = capacity * (t.weight / total_w) if total_w > 0 else capacity
+        want = max(int(share + 0.999999) - len(t.queue), 0)
+        if t.max_inflight is not None:
+            # past the cap, queued configs just sit — keep at most one
+            # cap's worth of runway buffered ahead of the in-flight window
+            runway = max(2 * t.max_inflight - t.inflight - len(t.queue), 0)
+            want = min(want, runway)
+        return want
 
     def busy(self) -> bool:
         """Anything to wait on?  False means the host cannot make progress
         without fresh submissions — the condition under which it should
         block on the search instead of polling an idle transport."""
-        return bool(self.inflight) or bool(self.pending)
+        return bool(self.inflight) or self._total_pending() > 0
 
     def submit(self, tc: TestConfig, tenant: str = "default") -> None:
-        if tenant != "default":
-            raise NotImplementedError(SLICE_6.format("multi-tenant fair share"))
+        t = self.tenants.get(tenant)
+        if t is None:
+            t = self.add_tenant(tenant)
+        if not t.queue and not t.inflight and len(self.tenants) > 1:
+            # reactivation clamp: an idle tenant's banked credit is capped
+            # at the most-favoured *active* tenant's balance, so returning
+            # from idle competes fairly instead of monopolizing the fleet
+            active = [x.deficit for x in self.tenants.values()
+                      if x is not t and (x.queue or x.inflight)]
+            if active:
+                t.deficit = min(t.deficit, max(active))
         if self.fingerprint_fn is not None:
             fp = self.fingerprint_fn(tc)
             self._fp[tc.config_id] = fp
             self._fp_by_repr[repr(fp)] = fp
-        self.pending.append((tc, self.max_retries))
+        self._tenant_of[tc.config_id] = tenant
+        t.queue.append((tc, self.max_retries))
+        t.n_submitted += 1
 
     # -- membership -----------------------------------------------------------
     def add_client(self, client_id: int,
@@ -432,34 +629,51 @@ class DispatchScheduler:
         if self.speculate_frac is not None or \
                 self.speculate_slow_mult is not None:
             out.extend(self._speculative_dispatches())
-        if not self.pending or not any(
+        if not self._total_pending() or not any(
                 s.open_chunks() for s in self.slots.values()):
             return out                # steady state: skip the bucketing work
         if self.affinity == "off":
             progress = True
-            while self.pending and progress:
+            while self._total_pending() and progress:
                 progress = False
                 # one chunk per slot per pass keeps clients evenly loaded
                 for slot in self.slots.values():
-                    if not self.pending:
+                    if not self._total_pending():
                         break
                     if slot.open_chunks() == 0:
                         continue
-                    size = min(self.chunk_size_for(slot), len(self.pending))
-                    items = [self.pending.popleft() for _ in range(size)]
-                    out.append((slot.client_id, self._dispatch(slot, items)))
+                    order = self._tenant_order()
+                    if not order:
+                        break         # all queued tenants are at their caps
+                    tenant = order[0]
+                    size = min(self.chunk_size_for(slot), len(tenant.queue))
+                    head = tenant.headroom()
+                    if head is not None:
+                        size = min(size, head)
+                    items = [tenant.queue.popleft() for _ in range(size)]
+                    out.append((slot.client_id,
+                                self._dispatch(slot, items, tenant)))
                     progress = True
             return out
-        # affinity: bucket the queue by fingerprint ONCE per call (arrival
-        # order preserved per bucket and, via seq, overall), then let every
-        # slot-pass consume from the buckets
-        groups: Dict[Hashable, Deque[Tuple[int, Tuple[TestConfig, int]]]] = {}
-        for seq, item in enumerate(self.pending):
-            fp = self._fp.get(item[0].config_id)
-            if fp not in groups:
-                groups[fp] = deque()
-            groups[fp].append((seq, item))
-        n_left = len(self.pending)
+        # affinity: bucket each tenant's queue by fingerprint ONCE per call
+        # (arrival order preserved per bucket and, via seq, overall), then
+        # let every slot-pass consume from the picked tenant's buckets
+        groups_of: Dict[str, Dict[Hashable,
+                                  Deque[Tuple[int,
+                                              Tuple[TestConfig, int]]]]] = {}
+        remaining: Dict[str, int] = {}
+        for t in self.tenants.values():
+            if not t.queue:
+                continue
+            groups: Dict[Hashable, Deque] = {}
+            for seq, item in enumerate(t.queue):
+                fp = self._fp.get(item[0].config_id)
+                if fp not in groups:
+                    groups[fp] = deque()
+                groups[fp].append((seq, item))
+            groups_of[t.name] = groups
+            remaining[t.name] = len(t.queue)
+        n_left = sum(remaining.values())
         progress = True
         while n_left and progress:
             progress = False
@@ -470,18 +684,37 @@ class DispatchScheduler:
                     break
                 if slot.open_chunks() == 0:
                     continue
-                items = self._take_affine(
-                    slot, min(self.chunk_size_for(slot), n_left), groups)
-                if not items:
-                    continue          # strict: this slot's work lives elsewhere
-                n_left -= len(items)
-                out.append((slot.client_id, self._dispatch(slot, items)))
-                progress = True
-        if n_left != len(self.pending):   # else the queue is untouched
+                # fairness picks the tenant, affinity picks within it; a
+                # tenant whose groups all live elsewhere (strict) yields
+                # nothing for this slot — fall through to the next tenant
+                for tenant in self._tenant_order():
+                    groups = groups_of.get(tenant.name)
+                    if not groups or remaining[tenant.name] == 0:
+                        continue
+                    size = min(self.chunk_size_for(slot),
+                               remaining[tenant.name])
+                    head = tenant.headroom()
+                    if head is not None:
+                        size = min(size, head)
+                    if size == 0:
+                        continue
+                    items = self._take_affine(slot, size, groups)
+                    if not items:
+                        continue  # strict: this slot's work lives elsewhere
+                    remaining[tenant.name] -= len(items)
+                    n_left -= len(items)
+                    out.append((slot.client_id,
+                                self._dispatch(slot, items, tenant)))
+                    progress = True
+                    break
+        for name, groups in groups_of.items():
+            t = self.tenants[name]
+            if remaining[name] == len(t.queue):
+                continue              # nothing consumed: queue is untouched
             left = sorted((e for q in groups.values() for e in q),
                           key=lambda e: e[0])
-            self.pending.clear()
-            self.pending.extend(item for _, item in left)
+            t.queue.clear()
+            t.queue.extend(item for _, item in left)
         return out
 
     def _take_affine(self, slot: ClientSlot, size: int,
@@ -491,8 +724,9 @@ class DispatchScheduler:
         per-fingerprint buckets.
 
         Groups are ranked: resident in this slot's shadow first (largest
-        first — tightest compile packing), then groups resident on no
-        healthy client (this slot becomes their
+        first — tightest compile packing), then groups the *fleet store*
+        already holds (a fetch, not a compile, wherever they land), then
+        groups resident on no healthy client (this slot becomes their
         home), then — only in ``prefer`` mode and only when the slot is
         completely idle — groups resident on another healthy client.
         Whole groups are taken head-first until the chunk is full, so a
@@ -500,9 +734,10 @@ class DispatchScheduler:
         not yet compiled anywhere: padding a chunk with the head of a
         second fresh group would claim it for this client, skewing group
         ownership across the fleet and serializing its compiles here;
-        groups resident in this slot's shadow are free riders.
+        resident groups — shadow- or fleet-resident — are free riders.
         """
         here: List[Hashable] = []
+        fleet: List[Hashable] = []
         unclaimed: List[Hashable] = []
         elsewhere: List[Hashable] = []
         for fp, q in groups.items():
@@ -510,6 +745,8 @@ class DispatchScheduler:
                 continue
             if fp is not None and fp in slot.shadow:
                 here.append(fp)
+            elif fp is not None and self._fleet_resident(fp):
+                fleet.append(fp)         # fetchable anywhere: free rider
             elif fp is not None and any(
                     fp in s.shadow for s in self.slots.values()
                     if s is not slot and not s.quarantined):
@@ -517,25 +754,41 @@ class DispatchScheduler:
             else:
                 unclaimed.append(fp)     # no affinity signal: first taker
         here.sort(key=lambda f: -len(groups[f]))
-        ranked = here + unclaimed
+        fleet.sort(key=lambda f: -len(groups[f]))
+        ranked = here + fleet + unclaimed
         if self.affinity == "prefer" and not slot.chunks:
             ranked += elsewhere          # steal rather than idle
+        fleet_set = set(fleet)
         taken: List[Tuple[TestConfig, int]] = []
         new_group_taken = False
         for fp in ranked:
             if len(taken) >= size:
                 break
-            if fp is None or fp not in slot.shadow:
+            free = (fp is not None and fp in slot.shadow) or fp in fleet_set
+            if not free:
                 if new_group_taken:      # one fresh compile group per chunk
                     continue
                 new_group_taken = True
             q = groups[fp]
+            took_any = False
             while q and len(taken) < size:
                 taken.append(q.popleft()[1])
+                took_any = True
+            if took_any and fp in fleet_set:
+                self.n_fleet_rides += 1
         return taken
 
+    def _fleet_resident(self, fp: Hashable) -> bool:
+        if self.fleet_resident_fn is None:
+            return False
+        try:
+            return bool(self.fleet_resident_fn(fp))
+        except Exception:
+            return False  # a stats probe must never take dispatch down
+
     def _dispatch(self, slot: ClientSlot,
-                  items: List[Tuple[TestConfig, int]]) -> List[TestConfig]:
+                  items: List[Tuple[TestConfig, int]],
+                  tenant: Optional[TenantState] = None) -> List[TestConfig]:
         now = self.clock()
         chunk_id = next(self._chunk_ids)
         if slot.chunks:
@@ -549,7 +802,10 @@ class DispatchScheduler:
         chunk = Chunk(chunk_id, slot.client_id,
                       deadline=base + self.timeout_s * len(items),
                       awaiting={tc.config_id for tc, _ in items},
-                      started_at=started)
+                      started_at=started,
+                      tenant=tenant.name if tenant is not None else "default")
+        if tenant is not None:
+            self._charge(tenant, len(items))
         if self.fingerprint_fn is not None:
             seen: Set[Hashable] = set()
             for tc, _ in items:
@@ -666,10 +922,12 @@ class DispatchScheduler:
         else:
             base = now
             started = now
+        # a mirror rides its source's tenant tag but is never re-charged:
+        # speculation is fleet-global insurance, not tenant demand
         mirror = Chunk(mirror_id, target.client_id,
                        deadline=base + self.timeout_s * len(tcs),
                        awaiting={tc.config_id for tc in tcs},
-                       started_at=started)
+                       started_at=started, tenant=src.tenant)
         mirror.mirror_of = src.chunk_id
         mirror.spec_kind = kind
         mirror.fps = list(src.fps)
@@ -752,6 +1010,11 @@ class DispatchScheduler:
         cid = msg.get("config_id")
         info = self.inflight.pop(cid, None) if cid is not None else None
         tc = info["tc"] if info is not None else None
+        if info is not None:
+            t = self.tenants.get(self._tenant_of.get(cid, "default"))
+            if t is not None:
+                t.inflight -= 1
+                t.n_done += 1
         reporter = msg.get("client_id")
         if reporter is None and info is not None:
             owner = self.chunks.get(info["chunk"])
@@ -792,6 +1055,7 @@ class DispatchScheduler:
                 self.n_clients_left += 1
         if tc is not None:
             self._fp.pop(cid, None)
+            self._tenant_of.pop(cid, None)
         return tc
 
     def _complete_chunk(self, slot: ClientSlot, chunk: Chunk) -> None:
@@ -819,6 +1083,15 @@ class DispatchScheduler:
                 slot.ewma_per_cfg_s = (self.ewma_alpha * per_cfg
                                        + (1 - self.ewma_alpha)
                                        * slot.ewma_per_cfg_s)
+            # the tenant's own cost model: future deficit charges for this
+            # tenant scale with what its configs actually cost the fleet
+            t = self.tenants.get(chunk.tenant)
+            if t is not None:
+                if t.cost_ewma is None:
+                    t.cost_ewma = per_cfg
+                else:
+                    t.cost_ewma = (self.ewma_alpha * per_cfg
+                                   + (1 - self.ewma_alpha) * t.cost_ewma)
         if slot.chunks:                       # successor starts now
             head = self.chunks[slot.chunks[0]]
             if head.started_at is None:
@@ -868,12 +1141,21 @@ class DispatchScheduler:
                     info["chunk"] = twin.chunk_id
                     continue
                 del self.inflight[cfg_id]
+                # a failing tenant's retries rejoin its OWN queue: the
+                # storm is contained by its deficit and in-flight cap
+                owner = self.tenants.get(
+                    self._tenant_of.get(cfg_id, "default"))
+                if owner is None:
+                    owner = self.tenants["default"]
+                owner.inflight -= 1
                 if not consume_retry:
-                    self.pending.append((info["tc"], info["retries"]))
+                    owner.queue.append((info["tc"], info["retries"]))
                 elif info["retries"] > 0:
-                    self.pending.append((info["tc"], info["retries"] - 1))
+                    owner.queue.append((info["tc"], info["retries"] - 1))
                 else:
                     self._fp.pop(cfg_id, None)
+                    self._tenant_of.pop(cfg_id, None)
+                    owner.n_done += 1
                     terminal.append((info["tc"], slot.client_id))
             if twin is not None:          # survivor completes standalone
                 twin.mirror_id = twin.mirror_of = None
@@ -902,7 +1184,7 @@ class DispatchScheduler:
     def stats(self) -> Dict[str, Any]:
         busy = sum(1 for s in self.slots.values() if s.chunks)
         s: Dict[str, Any] = {
-            "pending": len(self.pending),
+            "pending": self._total_pending(),
             "inflight": len(self.inflight),
             "chunks": len(self.chunks),
             "busy_clients": busy,
@@ -914,12 +1196,23 @@ class DispatchScheduler:
             "mean_chunk": (self.n_configs_dispatched
                            / max(self.n_chunks_dispatched, 1)),
         }
+        if len(self.tenants) > 1:
+            s["tenants"] = {
+                t.name: {"queued": len(t.queue), "inflight": t.inflight,
+                         "submitted": t.n_submitted,
+                         "dispatched": t.n_dispatched, "done": t.n_done,
+                         "weight": t.weight, "priority": t.priority,
+                         "max_inflight": t.max_inflight,
+                         "deficit": t.deficit, "cost_ewma": t.cost_ewma}
+                for t in self.tenants.values()}
         if self.fingerprint_fn is not None:
             s["affinity"] = self.affinity
             s["fp_chunks"] = self.n_fp_chunks
             s["affine_chunks"] = self.n_affine_chunks
             s["shadow_sizes"] = {c: len(sl.shadow)
                                  for c, sl in self.slots.items()}
+        if self.fleet_resident_fn is not None:
+            s["fleet_rides"] = self.n_fleet_rides
         if self.speculate_frac is not None or \
                 self.speculate_slow_mult is not None:
             s["speculated"] = self.n_speculated

@@ -491,7 +491,10 @@ class TorchIncrementalGP:
         refit on restore, which would reorder float ops and break the
         bit-exact resumed-pick guarantee.  float64 round-trips device→host→
         device losslessly.  Fit caches (``_alpha*``) are recomputed on the
-        next ask and not saved.
+        next ask and not saved.  ``cap`` (a key the reference's states
+        lack) is the live buffers' capacity: a restore allocates the same
+        one, so every capacity-wide device product of the resumed sweep has
+        the uninterrupted sweep's shapes.
         """
         n = self._n
 
@@ -502,7 +505,7 @@ class TorchIncrementalGP:
                 "signal": self.signal,
                 "inducing_threshold": self.inducing_threshold,
                 "inducing_overflow": self.inducing_overflow,
-                "n": n, "n_all": self._n_all,
+                "n": n, "n_all": self._n_all, "cap": self._cap,
                 "xb": None if n == 0 else host(self._xb[:n]),
                 "lb": None if n == 0 else host(self._lb[:n, :n]),
                 "lib": None if n == 0 else host(self._lib[:n, :n]),
@@ -547,7 +550,9 @@ class TorchIncrementalGP:
             self._n_all = int(state["n_all"])
         if n:
             d = state["xb"].shape[1]
-            self._ensure_cap(n, d)     # allocates zeroed pow2 device buffers
+            # zeroed pow2 device buffers, at the saved capacity where the
+            # state has one (the reference's states do not)
+            self._ensure_cap(max(n, int(state.get("cap", 0))), d)
             self._xb[:n] = self._dev(state["xb"])
             self._lb[:n, :n] = self._dev(state["lb"])
             self._lib[:n, :n] = self._dev(state["lib"])

@@ -50,8 +50,30 @@ see ``repro_torch.core.codec``.  Every receive path decodes by sniffing
 additionally answer in the codec of the last frame they received, so a
 binary host gets binary results back from a json-configured client.
 
-The reference's fleet artifact-store verbs (``ARTIFACT_*``, blob chunking)
-and multi-tenant control verbs (``CONTROL_*``) come with ROADMAP slice 6.
+Artifact verbs (fleet store)
+----------------------------
+The fleet-wide artifact store (``repro_torch.core.fleet``) rides the same two
+sockets as configs/results — clients have exactly one PUSH to the host and
+one PULL from it — using five frame commands:
+
+* ``ARTIFACT_QUERY`` (client→host) — "I miss fingerprint X in both my LRU
+  and disk tiers; does the fleet have it?"  Carries ``addr`` (the content
+  address, SHA-256 of ``repr((JConfig.identity(), cache_key))``) and ``fp``
+  (``repr(cache_key)``, keying the host's residency map).
+* ``ARTIFACT_PUT`` (both ways) — a pickled ``BuildResult`` blob (``blob``
+  bytes), or a blob-less residency announcement (relay mode), or a
+  ``status: "gone"`` apology when a relayed fetch finds nothing.
+* ``ARTIFACT_CHUNK`` (both ways) — one slice of a large blob
+  (``seq``/``n_chunks``); ``chunk_blob``/``ChunkAssembler`` split and
+  reassemble, so multi-MB engines never occupy one giant frame.
+* ``ARTIFACT_FETCH`` (host→client) — relay mode: "push me fingerprint X
+  from your cache" (answered with a PUT, or a ``gone`` PUT).
+* ``ARTIFACT_MISS`` (host→client) — the fleet has nothing: the asking
+  client compiles, becoming the fingerprint's designated compiler.
+
+``WireStats`` classifies these frames separately (``blob_*`` counters), so
+the wire summary distinguishes artifact-blob traffic from config/result
+traffic.
 """
 from __future__ import annotations
 
@@ -65,8 +87,23 @@ from repro_torch.core.codec import (Codec, decode_wire, resolve_codec, sniff_cod
 BATCH_CMD = "batch"          # row frame: {"items": [dict, ...]}
 BATCH_COLS_CMD = "batchc"    # columnar frame: keys serialized once
 
+# fleet artifact-store verbs (see module docstring + repro_torch.core.fleet)
+ARTIFACT_QUERY = "artifact_query"
+ARTIFACT_PUT = "artifact_put"
+ARTIFACT_CHUNK = "artifact_chunk"
+ARTIFACT_FETCH = "artifact_fetch"
+ARTIFACT_MISS = "artifact_miss"
+ARTIFACT_CMDS = frozenset((ARTIFACT_QUERY, ARTIFACT_PUT, ARTIFACT_CHUNK,
+                           ARTIFACT_FETCH, ARTIFACT_MISS))
+
+
+def is_artifact_msg(msg) -> bool:
+    """True for any fleet artifact-store frame."""
+    return isinstance(msg, dict) and msg.get("cmd") in ARTIFACT_CMDS
+
+
 # dynamic fleet membership verbs — ride the client→host result stream the
-# configs' results do (see repro_torch.core.scheduler add/remove_client)
+# same way ARTIFACT_* frames do (see repro_torch.core.scheduler add/remove_client)
 CLIENT_HELLO = "client_hello"       # join: {client_id, resident_fps?, endpoint?}
 CLIENT_GOODBYE = "client_goodbye"   # leave: {client_id, drain?}
 MEMBERSHIP_CMDS = frozenset((CLIENT_HELLO, CLIENT_GOODBYE))
@@ -75,6 +112,70 @@ MEMBERSHIP_CMDS = frozenset((CLIENT_HELLO, CLIENT_GOODBYE))
 def is_membership_msg(msg) -> bool:
     """True for a fleet-membership frame (HELLO/GOODBYE)."""
     return isinstance(msg, dict) and msg.get("cmd") in MEMBERSHIP_CMDS
+
+
+# multi-tenant service control verbs — a control plane riding the same
+# client→host stream (or stdin, for launch.serve_explore): SUBMIT registers
+# a new tenant sweep on the long-lived ExploreService, STATUS asks for a
+# per-tenant progress snapshot, CANCEL drops a tenant's queued work and
+# orphans its in-flight configs (see repro_torch.core.tenancy)
+CONTROL_SUBMIT = "control_submit"   # {tenant, spec{...}}
+CONTROL_STATUS = "control_status"   # {tenant?}
+CONTROL_CANCEL = "control_cancel"   # {tenant}
+CONTROL_CMDS = frozenset((CONTROL_SUBMIT, CONTROL_STATUS, CONTROL_CANCEL))
+
+
+def is_control_msg(msg) -> bool:
+    """True for a multi-tenant service control frame."""
+    return isinstance(msg, dict) and msg.get("cmd") in CONTROL_CMDS
+
+
+def chunk_blob(base: dict, blob: bytes, chunk_bytes: int) -> List[dict]:
+    """Frame ``blob`` onto ``base`` (an ARTIFACT_PUT-shaped dict): one PUT
+    frame when it fits, else a run of ARTIFACT_CHUNK frames carrying the
+    base's metadata plus ``seq``/``n_chunks``.  ``ChunkAssembler`` on the
+    far side reconstructs the identical PUT frame."""
+    if chunk_bytes <= 0 or len(blob) <= chunk_bytes:
+        return [dict(base, cmd=ARTIFACT_PUT, blob=blob)]
+    n = (len(blob) + chunk_bytes - 1) // chunk_bytes
+    return [dict(base, cmd=ARTIFACT_CHUNK, seq=i, n_chunks=n,
+                 blob=blob[i * chunk_bytes:(i + 1) * chunk_bytes])
+            for i in range(n)]
+
+
+class ChunkAssembler:
+    """Reassemble ARTIFACT_CHUNK runs into the PUT frame they sliced.
+
+    Keyed by (sender, addr) so interleaved streams from different peers —
+    or for different artifacts — cannot corrupt each other.  ``feed``
+    returns the completed PUT frame once every chunk arrived, else None.
+    A restarted run for the same key (seq 0 seen again, or a changed
+    n_chunks) discards the stale partial state.
+    """
+
+    def __init__(self):
+        self._parts: Dict[tuple, List[Optional[bytes]]] = {}
+
+    def feed(self, msg: dict) -> Optional[dict]:
+        key = (msg.get("client_id"), msg.get("addr"))
+        seq, n = msg.get("seq"), msg.get("n_chunks")
+        if not isinstance(seq, int) or not isinstance(n, int) \
+                or not 0 <= seq < n:
+            return None                       # malformed: drop
+        parts = self._parts.get(key)
+        if parts is None or len(parts) != n or (seq == 0 and parts[0]
+                                                is not None):
+            parts = self._parts[key] = [None] * n
+        blob = msg.get("blob")
+        parts[seq] = bytes(blob) if isinstance(blob, (bytes, bytearray)) \
+            else b""
+        if any(p is None for p in parts):
+            return None
+        del self._parts[key]
+        out = {k: v for k, v in msg.items() if k not in ("seq", "n_chunks")}
+        out["cmd"] = ARTIFACT_PUT
+        out["blob"] = b"".join(parts)
+        return out
 
 
 def frame_batch(msgs: List[dict]) -> dict:
@@ -138,6 +239,11 @@ class WireStats:
     field/column).  The host attaches ``wire_summary`` to the scheduler so
     ``DispatchScheduler.stats()`` — and the ``progress=True`` line — can
     show what each codec really costs on the wire.
+
+    Frames are additionally accounted *per class*: artifact-store frames
+    (``ARTIFACT_*`` commands — dominated by pickled ``BuildResult`` blobs)
+    land in the ``blob_*`` counters as well as the totals, so the summary
+    separates what the fleet cache moves from what dispatch/results move.
     """
 
     def __init__(self):
@@ -145,10 +251,21 @@ class WireStats:
         self.out_frames: Dict[int, int] = {}
         self.in_bytes: Dict[int, int] = {}
         self.in_frames: Dict[int, int] = {}
+        # artifact-class subset of the totals above
+        self.blob_out_bytes: Dict[int, int] = {}
+        self.blob_out_frames: Dict[int, int] = {}
+        self.blob_in_bytes: Dict[int, int] = {}
+        self.blob_in_frames: Dict[int, int] = {}
 
-    def sent(self, client_id: int, nbytes: int) -> None:
+    def sent(self, client_id: int, nbytes: int,
+             msg: Optional[dict] = None) -> None:
         self.out_bytes[client_id] = self.out_bytes.get(client_id, 0) + nbytes
         self.out_frames[client_id] = self.out_frames.get(client_id, 0) + 1
+        if is_artifact_msg(msg):
+            self.blob_out_bytes[client_id] = \
+                self.blob_out_bytes.get(client_id, 0) + nbytes
+            self.blob_out_frames[client_id] = \
+                self.blob_out_frames.get(client_id, 0) + 1
 
     def received(self, msg: Optional[dict], nbytes: int) -> None:
         """Attribute an inbound frame to its reporting client (-1 unknown)."""
@@ -165,6 +282,9 @@ class WireStats:
                 cid = v
         self.in_bytes[cid] = self.in_bytes.get(cid, 0) + nbytes
         self.in_frames[cid] = self.in_frames.get(cid, 0) + 1
+        if is_artifact_msg(msg):
+            self.blob_in_bytes[cid] = self.blob_in_bytes.get(cid, 0) + nbytes
+            self.blob_in_frames[cid] = self.blob_in_frames.get(cid, 0) + 1
 
     def summary(self) -> Dict:
         per_client = {}
@@ -173,6 +293,11 @@ class WireStats:
                    "out_frames": self.out_frames.get(cid, 0),
                    "in_kb": round(self.in_bytes.get(cid, 0) / 1e3, 2),
                    "in_frames": self.in_frames.get(cid, 0)}
+            if self.blob_out_bytes.get(cid) or self.blob_in_bytes.get(cid):
+                row["blob_out_kb"] = round(
+                    self.blob_out_bytes.get(cid, 0) / 1e3, 2)
+                row["blob_in_kb"] = round(
+                    self.blob_in_bytes.get(cid, 0) / 1e3, 2)
             per_client[cid] = row
         s = {
             "wire_out_mb": round(sum(self.out_bytes.values()) / 1e6, 6),
@@ -181,6 +306,13 @@ class WireStats:
             "wire_in_frames": sum(self.in_frames.values()),
             "wire_per_client": per_client,
         }
+        if self.blob_out_bytes or self.blob_in_bytes:
+            s["wire_blob_out_mb"] = round(
+                sum(self.blob_out_bytes.values()) / 1e6, 6)
+            s["wire_blob_in_mb"] = round(
+                sum(self.blob_in_bytes.values()) / 1e6, 6)
+            s["wire_blob_frames"] = (sum(self.blob_out_frames.values())
+                                     + sum(self.blob_in_frames.values()))
         return s
 
 
@@ -310,7 +442,7 @@ class ZmqHostTransport(HostTransport):
 
     def push(self, client_id: int, msg: dict) -> None:
         data = self._codec.encode(msg)
-        self._wire().sent(client_id, len(data))
+        self._wire().sent(client_id, len(data), msg)
         self._push[client_id].send(data)
 
     def pull(self, timeout_s: float) -> Optional[dict]:
@@ -439,7 +571,7 @@ class LoopbackHostTransport(HostTransport):
     def push(self, client_id: int, msg: dict) -> None:
         # round-trip through the codec to keep wire-format parity with ZMQ
         data = self._codec.encode(msg)
-        self._wire().sent(client_id, len(data))
+        self._wire().sent(client_id, len(data), msg)
         self._pair.to_client[client_id].put(data)
 
     def pull(self, timeout_s: float) -> Optional[dict]:

@@ -25,9 +25,15 @@ GP surrogate modes (``--gp``, bayesopt/pal only):
 ``cuda`` and ``torch`` run on the card unless ``--device`` names another,
 and raise when no card is visible.
 
-The reference's durable sweeps (``--checkpoint-dir``, ``--resume``), fault
-injection (``--chaos-*``) and fleet artifact store (``--fleet-cache``) come
-with ROADMAP slice 6: the flags are parsed and raise ``NotImplementedError``.
+Durable sweeps (``--checkpoint-dir``, ``--resume``): the searcher's state
+is snapshotted every ``--checkpoint-every`` results and every ask and tell
+goes to a write-ahead log first, so a killed host resumes with zero
+duplicate evaluations and, for a sync searcher, the uninterrupted sweep's
+picks bit for bit.  ``--chaos-*`` inject seeded faults on the host's wire
+(``core.chaos``); ``--chaos-crash-at N`` ends the process with exit code 42
+at the N-th result.  ``--fleet-cache serve|relay`` shares builds between the
+clients through the host (``core.fleet``): N clients × F fingerprints cost
+exactly F builds.
 """
 from __future__ import annotations
 
@@ -36,10 +42,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Any, List
-
-SLICE_6 = ("{} is not ported yet (ROADMAP slice 6: durability, elasticity, "
-           "service)")
+from typing import Any, List, Optional
 
 
 def parse_args(argv=None):
@@ -93,7 +96,12 @@ def parse_args(argv=None):
                         "repeated sweeps skip the build")
     p.add_argument("--fleet-cache", default="off",
                    choices=["off", "serve", "relay"],
-                   help="fleet-wide artifact store (ROADMAP slice 6)")
+                   help="fleet-wide artifact store: clients missing both "
+                        "local cache tiers fetch peers' builds through the "
+                        "host instead of rebuilding (serve: the host keeps "
+                        "a blob cache; relay: it forwards fetches to the "
+                        "resident peer), so N clients x F fingerprints "
+                        "cost exactly F builds")
     p.add_argument("--max-stale-tells", type=int, default=None,
                    help="with --async-search: discard precomputed asks "
                         "lagging the model by more than this many tells")
@@ -110,17 +118,27 @@ def parse_args(argv=None):
     p.add_argument("--gp-refresh", type=int, default=None, metavar="K",
                    help="re-tune the GP lengthscale every K tells")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="durable sweeps (ROADMAP slice 6)")
-    p.add_argument("--checkpoint-every", type=int, default=25)
+                   help="durable sweeps: snapshot the searcher here and "
+                        "write-ahead-log every ask and tell, so a killed "
+                        "host can continue with --resume")
+    p.add_argument("--checkpoint-every", type=int, default=25,
+                   help="completed evaluations between snapshots (the log "
+                        "covers the gap)")
     p.add_argument("--resume", action="store_true",
-                   help="continue a durable sweep (ROADMAP slice 6)")
+                   help="continue a sweep from --checkpoint-dir and --out: "
+                        "re-adopt the CSV, replay the event log, re-submit "
+                        "in-flight configs under their original ids")
     p.add_argument("--chaos-crash-at", type=int, default=None, metavar="N",
-                   help="fault injection (ROADMAP slice 6)")
+                   help="fault injection: end the process (os._exit(42), no "
+                        "flush or close) when the N-th result frame arrives")
     p.add_argument("--chaos-drop", type=float, default=0.0, metavar="P",
-                   help="fault injection (ROADMAP slice 6)")
+                   help="fault injection: drop outbound config frames with "
+                        "probability P")
     p.add_argument("--chaos-dup", type=float, default=0.0, metavar="P",
-                   help="fault injection (ROADMAP slice 6)")
-    p.add_argument("--chaos-seed", type=int, default=0)
+                   help="fault injection: duplicate outbound config frames "
+                        "with probability P")
+    p.add_argument("--chaos-seed", type=int, default=0,
+                   help="RNG seed of the fault injection")
     return p.parse_args(argv)
 
 
@@ -199,17 +217,23 @@ class _TimedSearch:
         return getattr(self._search, name)
 
 
+def fleet_mode(args) -> Optional[str]:
+    """``--fleet-cache`` as ``JClient``'s and the store's mode (None: off)."""
+    return None if args.fleet_cache == "off" else args.fleet_cache
+
+
 def start_fleet(args, jc, build_fn):
     """Stand up the loopback fleet: one JClient serve-thread per board,
-    each with its own persistent-cache subtree."""
+    each with its own persistent-cache subtree.  Shared by
+    ``launch.explore`` (one sweep) and ``launch.serve_explore``
+    (multi-tenant service)."""
     from repro_torch.core import JClient, transport
 
-    if args.fleet_cache != "off":
-        raise NotImplementedError(SLICE_6.format("--fleet-cache"))
     pair = transport.LoopbackPair(args.clients, codec=args.codec)
     clients = [JClient(jc, build_fn, transport=pair.client(i), client_id=i,
                        cache_dir=(None if args.cache_dir is None else
-                                  os.path.join(args.cache_dir, f"client{i}")))
+                                  os.path.join(args.cache_dir, f"client{i}")),
+                       fleet_mode=fleet_mode(args))
                for i in range(args.clients)]
     threads = [threading.Thread(target=c.serve,
                                 kwargs=dict(poll_s=0.1, idle_limit_s=None),
@@ -242,13 +266,18 @@ def generation_space(arch, chips):
 
 @dataclasses.dataclass
 class Explored:
-    """What one sweep leaves: the results, the searcher, the clients and
-    where the wall time went (``timings``)."""
+    """What one sweep leaves: the results, the searcher, the clients,
+    where the wall time went (``timings``), the resume's replay stats
+    (``restore_sweep``'s, None without ``--resume``), the fleet store's
+    ``stats()`` and the fault injection's (None when off)."""
     store: Any
     out: str
     algo: Any
     clients: List[Any]
     timings: dict
+    resume: Optional[dict] = None
+    fleet_stats: Optional[dict] = None
+    chaos_stats: Optional[dict] = None
 
 
 def run(argv=None) -> Explored:
@@ -262,15 +291,10 @@ def run(argv=None) -> Explored:
     loop's wall time outside the searcher (scheduling, transport, waiting
     for results)."""
     args = parse_args(argv)
-    for flag, on in (("--checkpoint-dir", args.checkpoint_dir is not None),
-                     ("--resume", args.resume),
-                     ("--chaos-*", args.chaos_crash_at is not None
-                      or args.chaos_drop or args.chaos_dup)):
-        if on:
-            raise NotImplementedError(SLICE_6.format(flag))
     from repro_torch.configs import SHAPES, get_arch, reduced
-    from repro_torch.core import (ALGORITHMS, JConfig, JHost, ResultStore,
-                                  SearchDriver, tpu_pod_space)
+    from repro_torch.core import (ALGORITHMS, ChaosTransport,
+                                  FleetArtifactStore, JConfig, JHost,
+                                  ResultStore, SearchDriver, tpu_pod_space)
 
     arch = get_arch(args.workload)
     if args.reduced:
@@ -298,7 +322,17 @@ def run(argv=None) -> Explored:
     store = ResultStore(csv_path=args.out,
                         knob_names=[k.name for k in space],
                         metric_names=("time_s", "power_w"))
-    host = JHost(pair.host(), store, timeout_s=args.timeout, poll_s=0.05)
+    host_transport = pair.host()
+    chaos = None
+    if (args.chaos_crash_at is not None or args.chaos_drop
+            or args.chaos_dup):
+        chaos = ChaosTransport(host_transport, seed=args.chaos_seed,
+                               drop_p=args.chaos_drop, dup_p=args.chaos_dup,
+                               crash_at_results=args.chaos_crash_at)
+        host_transport = chaos
+    host = JHost(host_transport, store, timeout_s=args.timeout, poll_s=0.05)
+    mode = fleet_mode(args)
+    fleet_store = None if mode is None else FleetArtifactStore(mode=mode)
     search = algo
     if args.async_search:
         search = SearchDriver(algo, mode="async",
@@ -314,14 +348,21 @@ def run(argv=None) -> Explored:
                      fingerprint_fn=(jc.cache_key if args.affinity != "off"
                                      or args.speculate_at is not None
                                      or args.speculate_slow_mult is not None
+                                     or fleet_store is not None
                                      else None),
                      speculate_frac=args.speculate_at,
                      speculate_slow_mult=args.speculate_slow_mult,
-                     pipeline_depth=args.pipeline_depth)
+                     pipeline_depth=args.pipeline_depth,
+                     fleet_store=fleet_store,
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     resume=args.resume)
     finally:
         if search is not algo:
             print(f"[explore] search driver: {search.stats()}")
             search.close()
+        if chaos is not None:
+            print(f"[explore] chaos: {chaos.stats()}")
         host.stop_clients()
         for t in threads:
             t.join(timeout=5.0)
@@ -334,7 +375,9 @@ def run(argv=None) -> Explored:
                "asks": timed.ask.calls, "tell_s": timed.tell.seconds,
                "tells": timed.tell.calls, "poll_s": poll_s, "polls": polls,
                "dispatch_s": wall - timed.ask.seconds - timed.tell.seconds - poll_s}
-    return Explored(store, args.out, algo, clients, timings)
+    return Explored(store, args.out, algo, clients, timings, host.resume_info,
+                    None if fleet_store is None else fleet_store.stats(),
+                    None if chaos is None else chaos.stats())
 
 
 def main(argv=None):
@@ -357,8 +400,9 @@ def main(argv=None):
           f"search {t['ask_s'] + t['tell_s'] + t['poll_s']:.2f}s over "
           f"{t['asks'] + t['polls']} asks, "
           f"dispatch {t['dispatch_s']:.2f}s")
-    if any(c.cache_dir is not None for c in res.clients):
-        line, _ = cache_effectiveness([c.cache_info() for c in res.clients])
+    if any(c.cache_dir is not None for c in res.clients) or res.fleet_stats:
+        line, _ = cache_effectiveness([c.cache_info() for c in res.clients],
+                                      res.fleet_stats)
         print(f"[explore] {line}")
     print(f"[explore] pareto front size = {len(front)}, "
           f"hypervolume = {hypervolume(pts, ref):.4g}")

@@ -12,12 +12,21 @@ import json
 from collections import defaultdict
 
 
-def cache_effectiveness(cache_infos):
-    """Fold per-client ``JClient.cache_info()`` dicts into one human summary
-    line and a flat totals dict (the ``results/bench.json`` fleet-row
-    payload).  ``hits``/``misses`` are the in-memory LRU, ``disk_*`` the
-    persistent tier.  The reference's fleet-store and per-tenant parts
-    (``fleet_stats``) come with ROADMAP slice 6.
+def cache_effectiveness(cache_infos, fleet_stats=None):
+    """Fold per-client ``JClient.cache_info()`` dicts (+ optional
+    ``FleetArtifactStore.stats()``) into one human summary line and a flat
+    totals dict (the ``results/bench.json`` fleet-row payload).
+
+    Tier semantics: ``hits``/``misses`` are the in-memory LRU, ``disk_*``
+    the persistent tier, ``fleet_*`` the host-mediated store; byte counters
+    are summed across clients.
+
+    When the fleet store ran under a multi-tenant ``ExploreService`` its
+    stats carry per-tenant served/assigned splits
+    (``fleet_tenant_hits``/``fleet_tenant_misses``): with more than one
+    tenant the store part is broken down per tenant (and the splits land in
+    the totals dict as ``store_tenant_<name>_served``/``_assigned``); with
+    a single tenant the classic one-line format is unchanged.
     """
     totals = defaultdict(int)
     for ci in cache_infos or ():
@@ -32,6 +41,30 @@ def cache_effectiveness(cache_infos):
     if "disk_hits" in out:
         parts.append(f"disk {out['disk_hits']}/"
                      f"{out['disk_hits'] + out.get('disk_misses', 0)} hits")
+    if "fleet_hits" in out:
+        mb_in = out.get("fleet_bytes_in", 0) / 1e6
+        parts.append(f"fleet {out['fleet_hits']}/"
+                     f"{out['fleet_hits'] + out.get('fleet_misses', 0)} hits "
+                     f"({mb_in:.2f} MB fetched)")
+    if fleet_stats:
+        for k, v in fleet_stats.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[f"store_{k.replace('fleet_', '')}"] = v
+        parts.append(f"store {fleet_stats.get('fleet_mode', '?')}: "
+                     f"{fleet_stats.get('fleet_hits', 0)} served, "
+                     f"{fleet_stats.get('fleet_misses', 0)} compiles assigned, "
+                     f"{fleet_stats.get('fleet_served_mb', 0.0):.2f} MB out")
+        t_hits = fleet_stats.get("fleet_tenant_hits") or {}
+        t_miss = fleet_stats.get("fleet_tenant_misses") or {}
+        tenants = sorted(set(t_hits) | set(t_miss))
+        for name in tenants:
+            out[f"store_tenant_{name}_served"] = t_hits.get(name, 0)
+            out[f"store_tenant_{name}_assigned"] = t_miss.get(name, 0)
+        if len(tenants) > 1:
+            # only a genuinely multi-tenant run changes the line format
+            for name in tenants:
+                parts.append(f"store[{name}]: {t_hits.get(name, 0)} served, "
+                             f"{t_miss.get(name, 0)} compiles assigned")
     return "cache: " + ", ".join(parts), out
 
 

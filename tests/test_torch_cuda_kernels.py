@@ -337,6 +337,51 @@ def test_gp_searcher_runs_through_the_kernels(cuda):
                                                        s["cuda_scores"])
 
 
+@pytest.mark.parametrize("algo", ["bayesopt", "pal"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_snapshot_restore_bit_identical_picks_on_the_card(cuda, algo, seed):
+    """``tests/test_durable.py``'s snapshot → restore at the paper's space
+    (llama2-7b's generation space, d = 7) on the cuda tier: a fresh searcher
+    restored from the pickled state continues with the original's picks,
+    through the kernels, with 5-row folds padded to 8 so the live factor is
+    wider than n rows would need; the snapshot holds no tensor."""
+    import pickle
+
+    from repro_torch.core import ALGORITHMS
+    from repro_torch.kernels import gp_ops
+    from repro_torch.launch.explore import generation_space
+
+    space = generation_space(get_arch("llama2-7b"), 8)
+    assert len(space.knobs) == 7
+
+    def objective(c):
+        x = space.encode(c)
+        return np.array([1.0 + x[0] + 0.5 * x[3], 2.0 - x[1] + 0.3 * x[4]])
+
+    def mk():
+        return ALGORITHMS[algo](space, seed=seed, n_init=6, pool_size=128, gp_mode="cuda")
+
+    a = mk()
+    for size in (6, 5, 5, 5, 5, 5):
+        for c in a.ask(size):
+            a.tell(c, objective(c))
+    asked = a.ask(5)                  # folds 26 -> 31 rows at capacity 64
+    assert (a._gp._n, a._gp._cap) == (31, 64)
+    blob = pickle.dumps(a.state_dict())
+    assert b"torch" not in blob
+    b = mk()
+    b.load_state(pickle.loads(blob))
+    assert (b._gp._n, b._gp._cap) == (31, 64)
+    before = gp_ops.gp_w.launches
+    for _ in range(4):
+        for c in asked:
+            a.tell(c, objective(c))
+            b.tell(c, objective(c))
+        asked = a.ask(5)
+        assert b.ask(5) == asked
+    assert gp_ops.gp_w.launches > before
+
+
 # ---------------------------------------------------------------------------
 # K4 (the SSD scan) and K5 (top-k gating) against their plain versions
 # ---------------------------------------------------------------------------

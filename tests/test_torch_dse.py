@@ -158,27 +158,47 @@ class FakeClock:
         return self.t
 
 
-def _scripted(pkg, seed, **kw):
+def _scripted(pkg, seed, tenants=None, cancel_at=None, fleet=False, **kw):
     """Drive a DispatchScheduler through a seeded script; return the trace
     of everything it answered.  The script's choices depend only on the
-    seed and on earlier answers, so equal packages give equal traces."""
+    seed and on earlier answers, so equal packages give equal traces.
+
+    ``tenants`` (name -> ``add_tenant`` keywords) registers tenants and
+    submits each one's fresh configs up to ``want_for`` it; ``cancel_at``
+    (step, name) cancels a tenant mid-script; ``fleet`` installs a
+    ``fleet_resident_fn`` that calls one fingerprint in three resident."""
     rng = np.random.default_rng(seed)
     clk = FakeClock()
     fp = None
     if kw.get("affinity", "off") != "off" or kw.get("speculate_slow_mult"):
         fp = lambda tc: (tc.arch, tc.shape, (("k", tc.knobs["x"] % 3),))  # noqa: E731
+    if fleet:
+        kw["fleet_resident_fn"] = lambda f: f[2][0][1] == 1  # noqa: E731
     sched = pkg["scheduler"].DispatchScheduler(
         [0, 1, 2], timeout_s=10.0, max_retries=1, fingerprint_fn=fp, clock=clk, **kw)
+    for name, opts in (tenants or {}).items():
+        sched.add_tenant(name, **opts)
     trace, queues, answered = [], {0: [], 1: [], 2: []}, []
     next_id = 0
     for step in range(70):
         want = sched.want(lookahead=int(step % 2))
         trace.append(("want", want, sched.busy()))
-        for _ in range(min(want, int(rng.integers(0, 7)))):
-            sched.submit(pkg["TestConfig"](next_id, "a", "s", {"x": next_id}))
-            next_id += 1
+        if tenants:
+            for name in tenants:
+                share = sched.want_for(name, lookahead=int(step % 2))
+                trace.append(("want_for", name, share))
+                for _ in range(min(share, int(rng.integers(0, 4)))):
+                    sched.submit(pkg["TestConfig"](next_id, "a", "s", {"x": next_id}),
+                                 tenant=name)
+                    next_id += 1
+        else:
+            for _ in range(min(want, int(rng.integers(0, 7)))):
+                sched.submit(pkg["TestConfig"](next_id, "a", "s", {"x": next_id}))
+                next_id += 1
+        if cancel_at is not None and step == cancel_at[0]:
+            trace.append(("cancel", sched.cancel_tenant(cancel_at[1])))
         disp = [(c, [t.config_id for t in tcs]) for c, tcs in sched.next_dispatches()]
-        trace.append(("dispatch", disp))
+        trace.append(("dispatch", disp, [sched.tenant_of(ids[0]) for _, ids in disp]))
         for c, ids in disp:
             queues.setdefault(c, []).append(ids)
         clk.t += float(rng.uniform(0.0, 3.0))
@@ -231,6 +251,18 @@ SCHED_CASES = {
     "affinity-strict": dict(policy="pipelined", batch_size=2, affinity="strict"),
     "speculate": dict(policy="eager", batch_size=2, speculate_frac=0.5),
     "speculate-slow": dict(policy="pipelined", batch_size=2, speculate_slow_mult=2.0),
+    # multi-tenant fair share: unequal weights, a priority class, an
+    # in-flight cap, a cancel mid-run; and the fleet store's consult
+    "tenants-weights": dict(policy="eager", batch_size=2,
+                            tenants={"a": {"weight": 1.0}, "b": {"weight": 3.0}}),
+    "tenants-priority": dict(policy="pipelined", batch_size=2,
+                             tenants={"lo": {}, "hi": {"priority": 2}}),
+    "tenants-cap": dict(policy="eager", batch_size=3,
+                        tenants={"capped": {"max_inflight": 2}, "free": {"weight": 0.5}}),
+    "tenants-cancel": dict(policy="pipelined", batch_size=2, affinity="prefer",
+                           tenants={"a": {}, "b": {"weight": 2.0}, "c": {}},
+                           cancel_at=(30, "b")),
+    "fleet-resident": dict(policy="pipelined", batch_size=3, affinity="strict", fleet=True),
 }
 
 
@@ -244,22 +276,57 @@ def test_scheduler_same_decisions(case, seed):
         assert a == b
 
 
-@pytest.mark.parametrize("entry", ["add_tenant", "submit_to_a_tenant", "jclient_fleet_mode"])
-def test_slice_6_entry_points_raise(entry):
-    """Multi-tenant fair share and the fleet artifact tier belong to ROADMAP
-    slice 6: their entry points raise instead of running a part-copy."""
-    from repro_torch.core import JClient, JConfig
+def _tenant_entry(pkg, entry):
+    """One slice-6 entry point driven in package ``pkg``: ``add_tenant``
+    then dispatches; a ``submit`` to a tenant; a ``JClient`` in fleet mode
+    that asks the store, is told to build, builds and announces the blob."""
+    if entry == "jclient_fleet_mode":
+        return _fleet_client_trace(pkg)
+    sched = pkg["scheduler"].DispatchScheduler([0, 1], batch_size=2)
+    if entry == "add_tenant":
+        sched.add_tenant("b", weight=2.0, priority=1, max_inflight=3)
+    for i in range(8):
+        tenant = "b" if i % 2 else "default"
+        sched.submit(pkg["TestConfig"](i, "a", "s", {"x": i}), tenant=tenant)
+    disp = [(c, [t.config_id for t in tcs]) for c, tcs in sched.next_dispatches()]
+    return (disp, [sched.tenant_of(i) for i in range(8)], sched.want_for("b"),
+            sched.stats(), len(sched.pending))
 
-    sched = scheduler.DispatchScheduler([0])
-    calls = {
-        "add_tenant": lambda: sched.add_tenant("b", weight=2.0),
-        "submit_to_a_tenant": lambda: sched.submit(TestConfig(0, "a", "s", {}), tenant="b"),
-        "jclient_fleet_mode": lambda: JClient(JConfig(tpu_pod_space(n_chips=256)),
-                                              lambda tc: None, fleet_mode="serve"),
-    }
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        calls[entry]()
-    assert sched.stats()["pending"] == 0
+
+def _fleet_client_trace(pkg):
+    from importlib import import_module
+
+    core = import_module(pkg["scheduler"].__name__.rsplit(".", 1)[0])
+    space = core.tpu_pod_space(n_chips=256)
+    jc = core.JConfig(space, n_chips=256)
+    pair = pkg["transport"].LoopbackPair(1)
+    built = []
+    client = core.JClient(jc, lambda tc: built.append(tc.config_id) or (None, {}),
+                          transport=pair.client(0), client_id=0, fleet_mode="serve",
+                          fleet_timeout_s=2.0)
+    tc = pkg["TestConfig"](0, "a", "s", space.sample(np.random.default_rng(0)))
+    key = jc.cache_key(tc)
+    pair.host().push(0, {"cmd": pkg["transport"].ARTIFACT_MISS, "addr": client._addr(key)})
+    client._artifact(key, tc)
+    frames = []
+    while not pair.to_host.empty():
+        msg = pkg["transport"].decode_wire(pair.to_host.get())
+        frames.append({k: (len(v) > 0 if k == "blob" else v) for k, v in msg.items()})
+    return frames, built, client.cache_info()
+
+
+@pytest.mark.parametrize("entry", ["add_tenant", "submit_to_a_tenant", "jclient_fleet_mode"])
+def test_slice_6_entry_points_match_the_reference(entry):
+    """Multi-tenant fair share and the fleet artifact tier run as the
+    reference's do."""
+    ours, ref = _tenant_entry(PORT, entry), _tenant_entry(REF, entry)
+    assert ours == ref
+    if entry == "jclient_fleet_mode":
+        frames, built, info = ours
+        assert [f["cmd"] for f in frames] == ["artifact_query", "artifact_put"]
+        assert built == [0] and info["fleet_misses"] == 1
+    else:
+        assert "b" in ours[1] and ours[0]
 
 
 def test_client_hello_and_goodbye_reach_the_scheduler(tmp_path):

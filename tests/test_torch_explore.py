@@ -7,15 +7,19 @@ and the sw knobs.  With the same seed and ``--clients 1`` the CSVs have
 identical knob and ``metric.*`` columns per ``config_id`` and the same pick
 order, for random, nsga2 and bayesopt, scalar and ``--batch-size 4``, eager
 and pipelined; with ``--clients 2`` the metrics keyed by knobs are equal.
-The port's own runs: the real build (``--reduced``), the GP tiers against
-each other on the CPU, the persistent cache, and the flags that belong to
-later slices.  The reference is imported inside the fixture, so the card
-test at the end runs where there is no JAX.
+The durability, fault-injection and fleet flags give the reference's CSV
+on the same stub build.  The port's own runs: the real build
+(``--reduced``), the GP tiers against each other on the CPU, the persistent
+cache, a crash that ends the process with exit code 42 and its resume.  The
+reference is imported inside the fixtures, so the card test at the end runs
+where there is no JAX.
 """
 import csv
 import functools
 import os
+import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -193,12 +197,110 @@ def test_async_search_times_its_polls(stub_port, tmp_path):
     assert parts == pytest.approx(t["wall_s"], rel=1e-9)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ck"], ["--resume"],
-                                  ["--chaos-drop", "0.1"], ["--chaos-crash-at", "3"],
-                                  ["--fleet-cache", "serve"]])
-def test_later_slices_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        explore.main(BASE + ["--gp", "incremental", "--out", str(tmp_path / "x.csv")] + flag)
+class _Crash(Exception):
+    pass
+
+
+@pytest.fixture
+def no_exit(monkeypatch):
+    """``--chaos-crash-at``'s hook ends the process with ``os._exit(42)``;
+    here it raises instead, in both packages, so the sweep's state on disk
+    is what a killed host leaves (the CSV is flushed per row)."""
+    from repro.core import chaos as ref_chaos
+    from repro_torch.core import chaos
+
+    def exit_(code):
+        raise _Crash(code)
+
+    for mod in (chaos, ref_chaos):
+        monkeypatch.setattr(mod, "os", types.SimpleNamespace(_exit=exit_))
+
+
+# seed 26 drops the third outbound chunk and no other of the first 30
+SLICE_6_FLAGS = {
+    "checkpoint-dir": (["--algorithm", "bayesopt", "--clients", "1"], [["--checkpoint-dir"]]),
+    "resume": (["--algorithm", "bayesopt", "--clients", "1"],
+               [["--checkpoint-dir", "--samples", "10"], ["--checkpoint-dir", "--resume"]]),
+    "chaos-crash-at": (["--algorithm", "bayesopt", "--clients", "1", "--batch-size", "3"],
+                       [["--checkpoint-dir", "--chaos-crash-at", "5"],
+                        ["--checkpoint-dir", "--resume"]]),
+    "chaos-drop": (["--algorithm", "random", "--clients", "2", "--batch-size", "4",
+                    "--timeout", "0.5"], [["--chaos-drop", "0.1", "--chaos-seed", "26"]]),
+    "fleet-cache": (["--algorithm", "random", "--clients", "2", "--batch-size", "2"],
+                    [["--fleet-cache", "serve"]]),
+}
+
+
+def _legs(run, legs, argv, directory):
+    """Run each leg of a flag's script; ``--checkpoint-dir`` names one
+    directory for all of them.  Returns the last leg's result (None where
+    a crash ended it)."""
+    out = None
+    for leg in legs:
+        extra = []
+        for a in leg:
+            extra += [a, os.path.join(directory, "ck")] if a == "--checkpoint-dir" else [a]
+        try:
+            out = run(argv + extra)
+        except _Crash:
+            out = None
+    return out
+
+
+@pytest.mark.parametrize("flag", sorted(SLICE_6_FLAGS))
+def test_slice_6_flags_give_the_reference_csv(flag, ref_explore, stub_port, no_exit,
+                                              monkeypatch, tmp_path):
+    """Each durability, fault-injection and fleet flag runs, and the port's
+    CSV is the reference's on the shared stub build: the checkpointed sweep,
+    a sweep extended by ``--resume``, a crash at the 5th result resumed, a
+    dropped chunk retried after its deadline on the other client, and the
+    fleet store's shared builds."""
+    extra, legs = SLICE_6_FLAGS[flag]
+    argv = BASE + ["--gp", "incremental", "--samples", "20"] + extra
+    ours, ref = str(tmp_path / "port.csv"), str(tmp_path / "ref.csv")
+    res = _legs(lambda a: explore.run(a), legs, argv + ["--out", ours], str(tmp_path / "p"))
+    _legs(lambda a: _run_ref(ref_explore, a, monkeypatch), legs, argv + ["--out", ref],
+          str(tmp_path / "r"))
+    assert _header(ours) == _header(ref)
+    got, want = _rows(ours), _rows(ref)
+    assert sorted(got) == sorted(want) == list(range(20))
+    assert got == want
+    if flag == "chaos-crash-at":
+        assert res.resume["n_events"] > 0 and res.resume["n_ask_mismatch"] == 0
+    if flag == "chaos-drop":
+        assert res.chaos_stats["dropped"] == 1
+    if flag == "fleet-cache":
+        assert res.fleet_stats["fleet_hits"] > 0
+        assert res.timings["builds"] == res.fleet_stats["fleet_misses"]
+
+
+def test_crash_exits_42_and_resumes(tmp_path):
+    """The real crash: ``--chaos-crash-at`` ends the explore process with
+    exit code 42 (the real build, reduced); ``--resume`` finishes the sweep
+    with zero duplicates and the uninterrupted sweep's rows."""
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    argv = [sys.executable, "-m", "repro_torch.launch.explore", "--workload", "llama2-7b",
+            "--reduced", "--samples", "12", "--algorithm", "bayesopt", "--gp", "incremental",
+            "--clients", "1", "--prompt-len", "8", "--gen-tokens", "4", "--seed", "5",
+            "--batch-size", "4", "--checkpoint-every", "6",
+            "--cache-dir", str(tmp_path / "cache")]
+
+    def run(extra, rc):
+        out = subprocess.run(argv + extra, env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == rc, out.stdout + out.stderr
+        return out.stdout
+
+    u, c = str(tmp_path / "u.csv"), str(tmp_path / "c.csv")
+    run(["--out", u, "--checkpoint-dir", str(tmp_path / "u_ck")], 0)
+    run(["--out", c, "--checkpoint-dir", str(tmp_path / "c_ck"), "--chaos-crash-at", "7"], 42)
+    assert "# resume:" in run(["--out", c, "--checkpoint-dir", str(tmp_path / "c_ck"),
+                               "--resume"], 0)
+    with open(c) as f:
+        ids = [r["config_id"] for r in csv.DictReader(f)]
+    assert len(ids) == len(set(ids)) == 12
+    assert _rows(c) == _rows(u)
 
 
 def test_train_shape_raises_in_the_build(tmp_path):

@@ -51,6 +51,17 @@ store = explore.main(["--workload", "llama2-7b", "--reduced", "--samples", "8",
                       "--gp", "incremental", "--algorithm", "bayesopt", "--clients", "2",
                       "--gen-tokens", "8", "--out", sys.argv[1]])
 assert len(store.ok_records()) == 8, [r.status for r in store.records]
+import json, os
+from repro_torch.launch import serve_explore
+tmp = os.path.dirname(sys.argv[1])
+with open(os.path.join(tmp, "tenants.json"), "w") as f:
+    json.dump([{"name": "bo", "algorithm": "bayesopt", "samples": 6, "gp": "cuda"},
+               {"name": "rnd", "algorithm": "random", "samples": 4}], f)
+served = serve_explore.main(["--workload", "llama2-7b", "--reduced", "--gen-tokens", "8",
+                             "--clients", "2", "--fleet-cache", "serve", "--device", "cpu",
+                             "--tenants", os.path.join(tmp, "tenants.json"),
+                             "--out-dir", tmp, "--checkpoint-root", os.path.join(tmp, "ck")])
+assert all(s.state == "done" for s in served.service._sweeps.values())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 assert not bad, bad
