@@ -154,9 +154,36 @@ failed check and then prints no result):
    tenants at one client with ``--gp cuda`` and ``--gp incremental`` must
    give every tenant the same rows.
    Both phases print their wall seconds and the nvidia-smi line.
+14. frontends_main (after main_moe): llava-v1.5-7b, internvl2-2b and
+   musicgen-medium at full width and depth in bf16 with flash attention:
+   batch 4, 576 image embeddings + 64 text tokens (vision, through
+   ``Engine.generate``) or 640 frame embeddings (audio: the prefill and
+   ``decode_step``s, since the Engine refuses a batch without tokens), 32
+   new tokens; K3's launches (set to 0 just before, read just after) must
+   equal the layers; K3 at these three prefill shapes (d = 64 for
+   musicgen) is in phase 3's parity cases; the drift gate against an fp32
+   twin on the plain path at full depth; prefill ms, decode ms per token,
+   peak memory.
+15. explore_llava (after serve_explore_main): the paper's LLaVA sweep,
+   ``launch.explore --workload llava-v1.5-7b --prompt-len 640 --gp cuda``,
+   32 samples, 2 clients; then one client, ``--gp cuda`` (calls recorded
+   and held against the plain versions) against ``--gp incremental``:
+   identical columns.
+16. train_main: (a) ``python -m repro_torch.launch.train`` (tinyllama-1.1b,
+   full size, fp32, batch 8 x 128, 20 steps, a checkpoint every 5) crashed
+   by ``--fault-at 12`` (exit 42) and resumed in a fresh process (``resumed
+   from step 10``), its losses bitwise equal to an uninterrupted run's;
+   (b) deepseek-moe-16b at full width cut to 4 layers, fp32, remat
+   selective, batch 4 x 512: step 1's loss and the routers' gradients with
+   K5 against K5's plain version (``TRAIN_LOSS_RTOL``,
+   ``ROUTER_GRAD_RTOL``; K5 at T = 2048 is in phase 3's cases), then 10
+   steps whose K5 launches must equal 3 MoE layers x (forward + recompute)
+   x 10, the loss falling; step ms, tokens/s and peak memory.
 
-Standard output ends with a ``kernels`` JSON line, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+Standard output ends with a ``kernels`` JSON line (K3's and K5's entries
+also carry ``launches_by_path``), the nvidia-smi line and
+``{"ok": true, "device": {...}}``.  ``--only a,b`` builds the kernels and
+runs only the named phases, printing no result.
 """
 from __future__ import annotations
 
@@ -280,7 +307,9 @@ def main_path_cases():
     """(name, B, S, H, Hkv, d, window, dtype) of every K3 call the main paths
     make: the Engine prefill and each SlotServer prefill, in bf16, at
     llama2-7b's heads and (named ``moe_*``) at deepseek-moe-16b's, whose
-    path serves the same traffic."""
+    path serves the same traffic; and frontends_main's 640-position
+    prefills at llava-v1.5-7b's, internvl2-2b's and musicgen-medium's
+    heads (d = 64)."""
     from repro_torch.configs import get_arch
 
     cases = []
@@ -291,6 +320,10 @@ def main_path_cases():
                    "bfloat16")]
         cases += [(f"{prefix}slot_prefill_s{n}", 1, n, h, hkv, d, 0, "bfloat16")
                   for n in SLOT_PROMPTS]
+    for arch in FRONTEND_ARCHS:                  # frontends_main's prefills
+        cfg = get_arch(arch)
+        cases += [(f"{arch.split('-')[0]}_prefill", ENGINE_BATCH, FRONTEND_PROMPT, cfg.n_heads,
+                   cfg.n_kv_heads, cfg.d_head, 0, "bfloat16")]
     return cases
 
 
@@ -764,7 +797,8 @@ def phase_times(errs, launches):
     from repro_torch.kernels import flash_attention as fa
 
     rows = {}
-    timed = ("slot_prefill_s64", "engine_prefill", "long_prompt", "gemma_window_4k")
+    timed = ("slot_prefill_s64", "engine_prefill", "long_prompt", "gemma_window_4k",
+             "llava_prefill", "musicgen_prefill")
     for name, b, s, h, hkv, d, window, dtype in main_path_cases() + EXTRA_CASES:
         if name not in timed:
             continue
@@ -919,7 +953,9 @@ def phase_topk_parity():
     from repro_torch.kernels import topk_gating as k5
 
     cases = [(name, t, e, k, False) for name, t, e, k in topk_main_path_cases()]
-    cases += [("engine_prefill_ties", 256, 64, 6, True), ("t1", 1, 64, 6, False),
+    cases += [("train_moe", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 64, 6, False),   # train_main (b)
+              ("train_moe_ties", MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, 64, 6, True),
+              ("engine_prefill_ties", 256, 64, 6, True), ("t1", 1, 64, 6, False),
               ("t37_ties", 37, 64, 6, True), ("t1000_e16", 1000, 16, 4, False),
               ("e256_k8", 33, 256, 8, False), ("e4_k4_ties", 40, 4, 4, True)]
     err = 0.0
@@ -1425,6 +1461,366 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
              "ms": rows["topk"]["ms"], "plain_ms": rows["topk"]["plain_ms"],
              "bound_ms": rows["topk"]["bound_ms"], "bound_by": rows["topk"]["bound_by"],
              "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
+# The frontends (K3 under the vision and audio archs) and the trainer (K5
+# forward and backward)
+# ---------------------------------------------------------------------------
+
+# The paper's LLaVA traffic: 576 image tokens ahead of 64 text tokens, batch
+# 4, 32 new tokens; musicgen-medium's prefill is 640 frames.
+FRONTEND_ARCHS = ("llava-v1.5-7b", "internvl2-2b", "musicgen-medium")
+FRONTEND_TEXT, FRONTEND_PROMPT = 64, 640
+
+
+def frontend_batch(cfg, seed):
+    """A vision batch (F image embeddings and FRONTEND_TEXT tokens) or an
+    audio batch (FRONTEND_PROMPT frame embeddings), numpy, as the serve CLI
+    makes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = ENGINE_BATCH
+    if cfg.frontend == "vision":
+        return {"image_embeds": rng.standard_normal((b, cfg.n_frontend_tokens, cfg.d_model),
+                                                    dtype=np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (b, FRONTEND_TEXT)).astype(np.int32)}
+    return {"frame_embeds": rng.standard_normal((b, FRONTEND_PROMPT, cfg.d_model),
+                                                dtype=np.float32)}
+
+
+def frontend_generate(model, batch):
+    """Greedy generation of ENGINE_NEW tokens: ``Engine.generate`` for a
+    vision batch; for an audio batch, which the Engine refuses (it has no
+    tokens), the prefill and ENGINE_NEW - 1 ``decode_step``s on the argmax
+    tokens, the same loop by hand.  Returns (tokens, prompt length)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine
+    from repro_torch.serve.engine import pad_caches
+
+    if model.cfg.frontend == "vision":
+        res = Engine(model, max_len=FRONTEND_PROMPT + ENGINE_NEW + 1).generate(batch, ENGINE_NEW)
+        return res.tokens, res.n_prompt
+    with torch.inference_mode():
+        logits, caches = model.prefill(batch)
+        caches = pad_caches(caches, FRONTEND_PROMPT, FRONTEND_PROMPT + ENGINE_NEW + 1)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        toks = [tok[:, 0]]
+        for pos in range(FRONTEND_PROMPT, FRONTEND_PROMPT + ENGINE_NEW - 1):
+            logits, caches = model.decode_step(tok, caches, pos)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(), FRONTEND_PROMPT
+
+
+def phase_frontends_main(seed):
+    """llava-v1.5-7b, internvl2-2b and musicgen-medium at full width and
+    depth in bf16 with flash attention and random weights: the vision archs
+    through ``Engine.generate`` (4 x (576 + 64) -> 32 tokens), the audio
+    arch through its prefill of 640 frames and 31 ``decode_step``s.  K3's
+    launches must equal the layers (one prefill each).  Drift gate: the
+    flash path and the plain grouped path, each against an fp32 copy on
+    the plain path, at full depth.  Prefill ms, decode ms per token and
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.serve.engine import pad_caches
+
+    t_phase = time.perf_counter()
+    flags = BuildFlags(dtype="bfloat16", attn_impl="flash")
+    launches = {}
+    for i, name in enumerate(FRONTEND_ARCHS):
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        model = Model(cfg, flags, device="cuda", seed=seed + i)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        emit("init", arch=name, n_layers=cfg.n_layers, d_model=cfg.d_model, d_head=cfg.d_head,
+             frontend=cfg.frontend, params=n_params, seconds=time.perf_counter() - t0)
+        batch = frontend_batch(cfg, seed + i)
+        n_attn = sum(1 for s in cfg.layer_specs() if s.mixer in ("attn", "attn_local"))
+
+        # ---- the path, with every kernel's launch count set to 0 just before
+        torch.cuda.reset_peak_memory_stats()
+        for kern in (k4.ssd_scan, k5.topk_gating, fa.flash_attention):
+            kern.launches = 0
+        t0 = time.perf_counter()
+        tokens, prompt = frontend_generate(model, batch)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        got = {"flash_attention": fa.flash_attention.launches,
+               "ssd_scan": k4.ssd_scan.launches, "topk_gating": k5.topk_gating.launches}
+        # ---- end of the path
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention": n_attn, "ssd_scan": 0, "topk_gating": 0}
+        emit("frontends_main", arch=name, prompt=prompt, batch=ENGINE_BATCH, n_gen=ENGINE_NEW,
+             generate_seconds=gen_s, generate_tokens_per_s=ENGINE_BATCH * ENGINE_NEW / gen_s,
+             launches=got, expected=want, max_memory_allocated=peak)
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want} (one prefill)")
+        if tokens.shape != (ENGINE_BATCH, ENGINE_NEW) or not (
+                (tokens >= 0).all() and (tokens < cfg.vocab_size).all()):
+            raise AssertionError(f"{name}: generated tokens wrong: shape {tokens.shape}")
+        launches[name] = got["flash_attention"]
+
+        # ---- times: prefill, decode per token (CUDA events), after the counted run
+        with torch.inference_mode():
+            prefill_ms = cuda_ms(lambda: model.prefill(batch), iters=3, warmup=1)
+            _, caches = model.prefill(batch)
+            caches = pad_caches(caches, prompt, prompt + ENGINE_NEW + 1)
+            tok = torch.zeros((ENGINE_BATCH, 1), dtype=torch.long, device="cuda")
+            steps = iter(range(prompt, prompt + ENGINE_NEW))
+            decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
+                                iters=ENGINE_NEW - 4, warmup=2)
+            del caches
+        emit("serve", path="frontends_main", arch=name, batch=ENGINE_BATCH, prompt=prompt,
+             n_gen=ENGINE_NEW, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+             max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
+
+        # ---- drift gate against an fp32 twin on the plain grouped path, at
+        # full depth: the largest, llava's, takes 40.5 GB with the bf16 model
+        plain = same_weights(model, dataclasses.replace(flags, attn_impl="xla"))
+        ref = same_weights(model, dataclasses.replace(flags, attn_impl="xla", dtype="float32"),
+                           cast=torch.float32)
+        with torch.inference_mode():
+            lk, _ = model.prefill(batch)
+            lp, _ = plain.prefill(batch)
+            lr, _ = ref.prefill(batch)
+        drift_gate(lk, lp, lr, f"frontends_main {name}", names=("flash", "xla"),
+                   n_layers=cfg.n_layers, prompt=prompt)
+        del model, plain, ref, lk, lp, lr
+        torch.cuda.empty_cache()
+    emit("frontends_main", phase_seconds=time.perf_counter() - t_phase,
+         nvidia_smi=nvidia_smi_line())
+    return launches
+
+
+# The trainer: (a) the launcher's default arch at full width and depth, fp32,
+# crashed and resumed; (b) deepseek-moe-16b at full width with its depth cut
+# 28 -> 4 (the dense layer and 3 MoE layers: AdamW's fp32 state for 28
+# layers would take about 262 GB), so K5 runs forward and in the remat
+# recompute.
+TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "128", "--steps", "20",
+              "--save-every", "5", "--log-every", "1", "--keep", "2"]
+TRAIN_FAULT_AT, TRAIN_RESUMED_FROM = 12, 10
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 10
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 512
+TRAIN_LOSS_RTOL = 1e-5        # step 1's loss, K5 against its plain version (fp32)
+ROUTER_GRAD_RTOL = 1e-4       # the routers' gradients, over max |g|
+
+
+def train_losses(stdout):
+    """{step: loss} from ``launch.train``'s log lines (the ``float.hex`` field)."""
+    import re
+
+    return {int(m.group(1)): float.fromhex(m.group(2))
+            for m in re.finditer(r"\[train\] step +(\d+) loss \S+ \((\S+)\)", stdout)}
+
+
+def run_train(argv, label, want_rc=0):
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                         env=port_env(), cwd=REPO, capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if out.returncode != want_rc:
+        raise AssertionError(f"train {label}: exit {out.returncode}, want {want_rc}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, secs
+
+
+def phase_train_cli(tmp):
+    """(a) ``python -m repro_torch.launch.train`` (tinyllama-1.1b, the
+    launcher's default arch, full width and depth, fp32, batch 8, seq 128,
+    20 steps, a checkpoint every 5): crashed by ``--fault-at 12`` (exit 42,
+    checkpoints at 5 and 10 on disk), resumed in a fresh process (it must
+    print ``resumed from step 10``), and run once uninterrupted; the resumed
+    run's losses must equal the uninterrupted run's bit for bit."""
+    import re
+    import shutil
+
+    ck = os.path.join(tmp, "train_ck")
+    free = shutil.disk_usage(tmp).free
+    crash_out, crash_s = run_train(TRAIN_ARGV + ["--checkpoint-dir", ck,
+                                                 "--fault-at", str(TRAIN_FAULT_AT)],
+                                   "crash", want_rc=CRASH_EXIT)
+    resume_out, resume_s = run_train(TRAIN_ARGV + ["--checkpoint-dir", ck], "resume")
+    straight_out, straight_s = run_train(TRAIN_ARGV, "uninterrupted")
+    crashed, resumed, straight = (train_losses(o) for o in (crash_out, resume_out,
+                                                             straight_out))
+    marker = f"[train] resumed from step {TRAIN_RESUMED_FROM}"
+    ms_step = [float(x) for x in re.findall(r"\((\d+) ms/step\)", straight_out)][-1:]
+    emit("train_main", part="a", argv=TRAIN_ARGV, fault_at=TRAIN_FAULT_AT,
+         crash_seconds=crash_s, resume_seconds=resume_s, uninterrupted_seconds=straight_s,
+         resumed_marker=marker in resume_out, crashed_steps=sorted(crashed),
+         resumed_steps=sorted(resumed),
+         losses_first_last=[straight.get(1), straight.get(20)],
+         uninterrupted_ms_per_step=ms_step,
+         tokens_per_s=[8 * 128 / (m / 1e3) for m in ms_step],
+         disk_free_bytes=free, nvidia_smi=nvidia_smi_line())
+    if marker not in resume_out:
+        raise AssertionError(f"train: the rerun did not resume from step "
+                             f"{TRAIN_RESUMED_FROM}:\n{resume_out[-2000:]}")
+    if sorted(straight) != list(range(1, 21)) or sorted(resumed) != list(range(11, 21)):
+        raise AssertionError(f"train: logged steps {sorted(straight)} / {sorted(resumed)}")
+    differ = [s for s in resumed if resumed[s] != straight[s]]
+    same_before = all(crashed[s] == straight[s] for s in crashed)
+    if differ or not same_before:
+        raise AssertionError(f"train: resumed losses differ from the uninterrupted run's at "
+                             f"steps {differ} (before the crash equal: {same_before})")
+    if not straight[20] < straight[1]:
+        raise AssertionError(f"train: the loss did not fall: {straight[1]} -> {straight[20]}")
+
+
+def phase_train_moe(seed):
+    """(b) deepseek-moe-16b at full width, depth cut to 4 layers (the dense
+    layer and 3 MoE layers), fp32, remat selective, AdamW as the launcher
+    builds it, batch 4 x 512: step 1's loss and the routers' gradients with
+    K5 against the same with K5's plain version; then 10 steps, K5's
+    launches set to 0 just before and read just after, which must equal
+    the MoE layers x (forward + recompute) x steps; the loss must fall."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import (adamw, cosine_schedule, init_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    n_moe = sum(1 for s in cfg.layer_specs() if s.ffn == "moe")
+    flags = BuildFlags(dtype="float32", remat="selective", sp=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, flags, device="cuda", seed=seed)
+    opt = adamw(cosine_schedule(1e-3, max(MOE_TRAIN_STEPS // 20, 1), MOE_TRAIN_STEPS))
+    state = init_train_state(model, opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("init", arch=cfg.name, n_layers=MOE_TRAIN_LAYERS, cut_from=get_arch(MOE_ARCH).n_layers,
+         params=n_params, seconds=time.perf_counter() - t0)
+    data = SyntheticLM(cfg, DataConfig(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed))
+
+    # ---- K5 against its plain version under autograd, on step 1's batch
+    batch = to_device(data.batch(0), "cuda")
+    routers = [p for n, p in model.named_parameters() if n.endswith("router")]
+    out = {}
+    for label, gate in (("kernel", moe_mod.topk_gating), ("plain", k5.topk_gating_plain)):
+        moe_mod.topk_gating = gate
+        try:
+            loss, _ = model.loss_fn(batch)
+            out[label] = (loss.detach(), torch.autograd.grad(loss, routers))
+        finally:
+            moe_mod.topk_gating = k5.topk_gating
+    loss_err = abs(out["kernel"][0].item() - out["plain"][0].item())
+    g_scale = max(g.abs().max().item() for g in out["plain"][1])
+    g_err = max((a - b).abs().max().item() for a, b in zip(out["kernel"][1], out["plain"][1]))
+    ok = (loss_err <= TRAIN_LOSS_RTOL * abs(out["plain"][0].item())
+          and g_err <= ROUTER_GRAD_RTOL * g_scale and g_scale > 0)
+    emit("train_moe_parity", loss_kernel=out["kernel"][0].item(),
+         loss_plain=out["plain"][0].item(), loss_abs_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+         router_grad_max_abs_err=g_err, router_grad_max_abs=g_scale,
+         router_grad_rtol=ROUTER_GRAD_RTOL, ok=ok)
+    if not ok:
+        raise AssertionError("K5 in the MoE trainer disagrees with its plain version")
+    del out, loss
+
+    # ---- the training run, K5's (and K3's) counts set to 0 just before
+    step_fn = make_train_step(model, opt)
+    batches = [to_device(data.batch(i), "cuda") for i in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    k5.topk_gating.launches = fa.flash_attention.launches = 0
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        losses.append(met["loss"].item())        # syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"topk_gating": k5.topk_gating.launches,
+                "flash_attention": fa.flash_attention.launches}
+    # ---- end of the run
+    peak = torch.cuda.max_memory_allocated()
+    want = {"topk_gating": n_moe * 2 * MOE_TRAIN_STEPS, "flash_attention": 0}
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    emit("train_main", part="b", arch=cfg.name, n_layers=MOE_TRAIN_LAYERS, moe_layers=n_moe,
+         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, remat="selective", steps=MOE_TRAIN_STEPS,
+         losses=losses, step_ms=step_ms, median_step_ms_after_first=steady,
+         tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (steady / 1e3),
+         launches=launches, expected=want, max_memory_allocated=peak,
+         params=n_params, nvidia_smi=nvidia_smi_line())
+    if launches != want:
+        raise AssertionError(f"MoE trainer launches {launches}, expected {want}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE trainer: the loss did not fall: {losses}")
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_main(tmp):
+    t0 = time.perf_counter()
+    phase_train_cli(tmp)
+    launches = phase_train_moe(SEED)
+    emit("train_main", phase_seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    return launches
+
+
+# The paper's LLaVA sweep (Fig. 4): the explore command with --workload
+# llava-v1.5-7b; its prompt holds the 576 image tokens and 64 text tokens
+# (at the default --prompt-len 64 neither package can build it).
+LLAVA_EXPLORE = ["--workload", "llava-v1.5-7b", "--shape", "generate", "--algorithm", "bayesopt",
+                 "--seed", "0", "--prompt-len", str(FRONTEND_PROMPT)]
+LLAVA_SAMPLES = 32
+
+
+def phase_explore_llava(tmp):
+    """``launch.explore --workload llava-v1.5-7b --prompt-len 640 --gp cuda``,
+    32 samples, 2 clients (each build counts llava at full width on meta,
+    its 576 image embeddings through the frontend projection); then at one
+    client ``--gp cuda`` (every K1a/K1b call recorded and held against its
+    plain version) against ``--gp incremental`` on one cache: identical
+    knob and metric columns per config_id."""
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "llava_cache")
+    argv = LLAVA_EXPLORE + ["--gp", "cuda", "--clients", "2", "--samples", str(LLAVA_SAMPLES),
+                            "--cache-dir", cache, "--out", os.path.join(tmp, "llava_main.csv")]
+    res, launches, by_form, busy = device_busy(counted_explore, argv)
+    check_sweep(res, LLAVA_SAMPLES, "explore_llava")
+    if min(launches["gp_w"], launches["gp_g"]) == 0:
+        raise AssertionError(f"explore_llava: K1a/K1b were not launched: {launches}")
+    emit("explore_llava", argv=argv, launches=launches, launches_by_form=by_form,
+         **explore_summary(res, busy, 2))
+    cols = {}
+    for gp in ("cuda", "incremental"):
+        out = os.path.join(tmp, f"llava_{gp}.csv")
+        calls = [] if gp == "cuda" else None
+        res, launches, _ = counted_explore(
+            LLAVA_EXPLORE + ["--gp", gp, "--clients", "1", "--samples", str(LLAVA_SAMPLES),
+                             "--cache-dir", cache, "--out", out], record=calls)
+        check_sweep(res, LLAVA_SAMPLES, f"explore_llava {gp}")
+        cols[gp] = sweep_columns(out)
+        if calls is not None:
+            check_recorded(calls, "explore_llava")
+        emit("explore_llava", gp=gp, clients=1, launches=launches, builds=res.timings["builds"],
+             wall_seconds=res.timings["wall_s"])
+    same = sum(cols["cuda"].get(i) == row for i, row in cols["incremental"].items())
+    emit("explore_llava", configs=len(cols["incremental"]), identical_rows=same,
+         phase_seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    if cols["cuda"] != cols["incremental"]:
+        raise AssertionError(f"explore_llava: --gp cuda and --gp incremental differ ({same} of "
+                             f"{len(cols['incremental'])} rows identical)")
 
 
 # ---------------------------------------------------------------------------
@@ -2609,7 +3005,26 @@ def phase_gp_times(errs, launches, exp_f64):
     return out
 
 
-def main():
+def run_only(names):
+    """``--only a,b``: the build, then only the named phases (for iterating
+    on one phase; prints no result line)."""
+    phases = {
+        "parity": phase_parity, "ssd_parity": phase_ssd_parity, "topk_parity": phase_topk_parity,
+        "main_path": lambda: phase_main_path(N_LAYERS, SEED),
+        "main_ssm": lambda: phase_ssm_main(SEED), "main_moe": lambda: phase_moe_main(SEED),
+        "frontends_main": lambda: phase_frontends_main(SEED),
+        "train_main": lambda: phase_train_main(tempfile.mkdtemp(prefix="train")),
+        "train_moe": lambda: phase_train_moe(SEED),
+        "explore_llava": lambda: phase_explore_llava(tempfile.mkdtemp(prefix="llava")),
+    }
+    for name in names:
+        t0 = time.perf_counter()
+        phases[name]()
+        emit("only", ran=name, seconds=time.perf_counter() - t0)
+    return 0
+
+
+def main(only=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -2620,6 +3035,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_script = time.perf_counter()
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -2635,6 +3051,8 @@ def main():
                   for n, i in infos.items()})
     for name, info in infos.items():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
+    if only:
+        return run_only(only)
     phase_k3_sass(infos["flash_attention"])
     exp_f64 = phase_gp_sass(infos["gp_ops"], probe)
     phase_ssd_sass(infos["ssd_scan"])
@@ -2647,6 +3065,7 @@ def main():
     phase_small_reference()
     ssm_launches = phase_ssm_main(SEED)
     moe_launches = phase_moe_main(SEED)
+    frontend_launches = phase_frontends_main(SEED)
     gp_errs = phase_gp_parity()
     phase_search_small()
     gp_launches = phase_search_main()
@@ -2654,8 +3073,19 @@ def main():
         explored = phase_explore_main(tmp)
         phase_explore_durable(explored, tmp)
         phase_serve_explore_main(explored, tmp)
+        phase_explore_llava(tmp)
+        train_launches = phase_train_main(tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
+    paths = {"flash_attention": {ARCH: launches["flash_attention"],
+                                 MOE_ARCH: moe_launches["flash_attention"], **frontend_launches},
+             "topk_gating": {f"{MOE_ARCH} serving": moe_launches["topk_gating"],
+                             f"{MOE_ARCH} training ({MOE_TRAIN_LAYERS} layers)":
+                                 train_launches["topk_gating"]}}
+    for k in kernels:
+        if k["name"] in paths:
+            k["launches_by_path"] = paths[k["name"]]
+    emit("script", seconds=time.perf_counter() - t_script)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -2668,4 +3098,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:       # explore_durable's resumed process
         sys.exit(resume_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--only"]:               # e.g. --only frontends_main,train_main
+        sys.exit(main(only=sys.argv[2].split(",")))
     sys.exit(main())

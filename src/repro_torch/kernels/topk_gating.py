@@ -18,6 +18,17 @@ dominates; a call's time is the wrapper's host path.  So the wrapper keeps
 that path short: its checks, the outputs' allocations (``out_buffers``),
 the raw current stream and one ctypes call, to which it passes the device
 index (the C side switches device only when it differs).
+
+Training differentiates the router through the gate probabilities.  The
+reference leaves that to XLA's autodiff of its plain gating; here the
+wrapper, when its logits need a gradient, runs inside ``TopkGating``, an
+``autograd.Function`` whose forward is the same call (K5 on the card, the
+plain version on the CPU) and whose backward is plain PyTorch: with p the
+softmax of the saved logits recomputed and g the gradient of ``top_p``,
+dL/dlogits = p ⊙ (scatter(g) − Σ_k g·top_p).  The ids carry no gradient.
+The counter counts forward launches only, so a training step under
+activation checkpointing counts K5 once for the forward and once for the
+recompute.
 """
 from __future__ import annotations
 
@@ -38,7 +49,7 @@ def topk_gating_plain(logits, k):
     descending sort, which keeps equal probabilities in index order
     (``torch.topk`` does not promise that order).
     """
-    x = logits.float()
+    x = logits if logits.dtype == torch.float64 else logits.float()
     ex = torch.exp(x - x.max(dim=-1, keepdim=True).values)
     probs = ex / ex.sum(dim=-1, keepdim=True)
     top_p, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -83,10 +94,18 @@ def topk_gating(logits, k):
     """Softmax over the last axis of ``logits`` (T, E), then its top ``k``.
 
     Returns (top_p (T, k) fp32, top_ids (T, k) int32).  A CPU tensor goes
-    through ``topk_gating_plain``.  A CUDA tensor launches the CUDA kernel or
-    raises.  A ``meta`` tensor (the explore loop's build, which counts and
-    allocates nothing) gets the outputs' shapes and launches nothing.
+    through ``topk_gating_plain`` (float64 logits stay float64 there, for
+    ``gradcheck``).  A CUDA tensor launches the CUDA kernel or raises.  A
+    ``meta`` tensor (the explore loop's build, which counts and allocates
+    nothing) gets the outputs' shapes and launches nothing.  Logits that
+    need a gradient go through ``TopkGating``.
     """
+    if logits.requires_grad and torch.is_grad_enabled():
+        return TopkGating.apply(logits, k)
+    return _forward(logits, k)
+
+
+def _forward(logits, k):
     dev = logits.device
     if dev.type == "cpu":
         return topk_gating_plain(logits, k)
@@ -109,3 +128,33 @@ def topk_gating(logits, k):
 
 
 topk_gating.launches = 0   # launches of the CUDA kernel in this process
+
+
+def topk_gating_backward(logits, top_p, top_ids, grad_p):
+    """dL/dlogits of ``top_p`` = softmax(logits)[top_ids], given dL/dtop_p.
+
+    With p = softmax(logits): dp_i/dx_m = p_i (δ_im − p_m), so
+    dL/dx = p ⊙ (scatter(g) − Σ_k g·top_p).  The ids of a row are distinct,
+    so the scatter adds one value to each place it writes."""
+    x = logits if logits.dtype == torch.float64 else logits.float()
+    p = torch.softmax(x, dim=-1)
+    g = grad_p.to(p.dtype)
+    scat = torch.zeros_like(p).scatter_add_(1, top_ids.long(), g)
+    dot = (g * top_p.to(p.dtype)).sum(dim=-1, keepdim=True)
+    return (p * (scat - dot)).to(logits.dtype)
+
+
+class TopkGating(torch.autograd.Function):
+    """K5 (or its plain version on the CPU) forward, plain PyTorch backward."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        top_p, top_ids = _forward(logits, k)
+        ctx.save_for_backward(logits, top_p, top_ids)
+        ctx.mark_non_differentiable(top_ids)
+        return top_p, top_ids
+
+    @staticmethod
+    def backward(ctx, grad_p, grad_ids):
+        logits, top_p, top_ids = ctx.saved_tensors
+        return topk_gating_backward(logits, top_p, top_ids, grad_p), None

@@ -43,9 +43,13 @@ Per device, with n = dp·tp devices:
   head ends in an all-gather of the (batch/dp, vocab) logits,
   Y·(g−1)/g.  At tp = 1 there are none.
 
+A vision or audio arch's prefill takes its frontend embeddings as the
+reference's ``input_specs`` makes them (``prefill_inputs``); decode steps
+take tokens.
+
 ``hbm_est_per_device`` is not set here: ``launch.explore.make_build_fn``
 sets it from ``roofline/traffic.py``, as the reference does.  Train shapes
-come with ROADMAP slice 7.
+come with ROADMAP slice 7b.
 """
 from __future__ import annotations
 
@@ -62,8 +66,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.model import BuildFlags, Model
 from repro_torch.roofline.analysis import Artifact
 
-SLICE_7 = ("train shapes are not ported yet (ROADMAP slice 7: training, "
-           "parallelism, launchers)")
+SLICE_7 = ("train shapes are not ported yet (ROADMAP slice 7b: sharding, "
+           "the train cells, the dry run)")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -153,6 +157,26 @@ def _count(fn, *inputs) -> Tuple[CostMode, Any, int]:
     return mode, out, mode.peak - mode.live
 
 
+def prefill_inputs(arch: ArchConfig, b: int, s: int, dtype, device="meta"):
+    """A prefill batch of ``s`` positions, as the reference's
+    ``Model.input_specs``: a vision arch's F image embeddings (in the model
+    dtype) ahead of s − F text tokens, an audio arch's s frame embeddings,
+    else s tokens."""
+    tokens = lambda n: torch.zeros((b, n), dtype=torch.long, device=device)
+    embeds = lambda n: torch.zeros((b, n, arch.d_model), dtype=dtype, device=device)
+    if arch.frontend == "vision":
+        f = arch.n_frontend_tokens
+        if s < f:
+            raise ValueError(
+                f"{arch.name}: a {s}-position prompt is shorter than its {f} image "
+                f"tokens; give a prompt of at least {f} positions (the reference fails "
+                "here too, asking for a negative number of text tokens)")
+        return {"image_embeds": embeds(f), "tokens": tokens(s - f)}
+    if arch.frontend == "audio":
+        return {"frame_embeds": embeds(s)}
+    return {"tokens": tokens(s)}
+
+
 def build_cell(arch: ArchConfig, shape: ShapeConfig, dp: int, tp: int,
                flags: BuildFlags = BuildFlags()) -> BuiltCell:
     """Count one prefill or decode step of ``arch`` at ``shape`` on meta."""
@@ -162,8 +186,7 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, dp: int, tp: int,
     model = Model(arch, flags, device="meta", seed=None)
     b = shape.global_batch
     if shape.kind == "prefill":
-        inputs = ({"tokens": torch.zeros((b, shape.seq_len), dtype=torch.long,
-                                         device="meta")},)
+        inputs = (prefill_inputs(arch, b, shape.seq_len, flags.tdtype),)
         mode, out, temp = _count(model.prefill, *inputs)
     elif shape.kind == "decode":
         caches = model.empty_caches(b, shape.seq_len)

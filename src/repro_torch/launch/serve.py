@@ -12,6 +12,11 @@ the plain chunked path, the reference's default.  On the card the two plain
 choices serve the same weights without K3 or K4, so an operator whose output
 looks wrong can tell a kernel fault from a model fault by comparing the
 tokens.  MoE routing always goes through the gating kernel K5 on the card.
+
+Inputs are made as the reference makes them: a vision arch gets
+``n_frontend_tokens`` random image embeddings and ``max(prompt_len − F, 1)``
+text tokens; an audio arch gets ``prompt_len`` random frame embeddings and
+no tokens, which ``Engine.generate`` refuses, as the reference's fails.
 """
 from __future__ import annotations
 
@@ -52,8 +57,18 @@ def main(argv=None):
     flags = BuildFlags(dtype=args.dtype, attn_impl=args.attn_impl, ssd_impl=args.ssd_impl)
     model = Model(arch, flags, device=args.device, seed=args.seed)
     rng = np.random.default_rng(args.seed)
-    batch = {"tokens": rng.integers(0, arch.vocab_size,
-                                    (args.batch, args.prompt_len)).astype(np.int32)}
+    batch = {}
+    ptoks = args.prompt_len
+    if arch.frontend == "vision":
+        f = arch.n_frontend_tokens
+        batch["image_embeds"] = rng.standard_normal((args.batch, f, arch.d_model),
+                                                    dtype=np.float32)
+        ptoks = max(args.prompt_len - f, 1)
+    if arch.frontend == "audio":
+        batch["frame_embeds"] = rng.standard_normal((args.batch, ptoks, arch.d_model),
+                                                    dtype=np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, arch.vocab_size, (args.batch, ptoks)).astype(np.int32)
 
     eng = Engine(model, max_len=args.prompt_len + args.gen + 1)
     t0 = time.time()

@@ -1,12 +1,19 @@
-"""Model facade: prefill / decode built from ArchConfig (port of ``repro/models/model.py``).
+"""Model facade: train loss / prefill / decode built from ArchConfig (port of ``repro/models/model.py``).
 
-``BuildFlags`` holds the reference's fields that the serving path reads,
-with the reference's defaults: ``dtype``, ``attn_impl``, the attention tile
-knobs and ``ssd_impl``, whose ``"cuda"`` (the kernel K4) is the counterpart
-of the reference's ``"pallas"``.  The training, sharding and scan fields
-(``remat``, ``loss_chunks``, ``sp``, ``fsdp``, ``grad_rs``, ``unroll``) are
-the ones ``core.jconfig.build_flags`` sets; the serving path does not read
-them, and ``launch.build`` reads ``sp`` only for its collective formula.
+``BuildFlags`` holds the reference's fields with the reference's defaults:
+``dtype``, ``attn_impl``, the attention tile knobs and ``ssd_impl``, whose
+``"cuda"`` (the kernel K4) is the counterpart of the reference's
+``"pallas"``; ``remat`` and ``loss_chunks``, which the training loss reads;
+and the sharding and scan fields (``sp``, ``fsdp``, ``grad_rs``,
+``unroll``) that ``core.jconfig.build_flags`` sets, of which only
+``launch.build`` reads ``sp``, for its collective formula.
+
+Frontends are stubs, as in the reference: a vision arch takes precomputed
+patch embeddings (``image_embeds``, (B, F, d)) that go through one (d, d)
+projection ``frontend.proj`` and are put ahead of the text embeddings; an
+audio arch takes precomputed frame embeddings (``frame_embeds``, (B, S, d))
+through the same projection and has no text tokens.  Decode steps take
+token ids for every arch.
 """
 from __future__ import annotations
 
@@ -15,11 +22,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import Embedding, LMHead, RMSNorm
+from repro_torch.models.layers import Embedding, LMHead, RMSNorm, normal_param
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -44,6 +52,14 @@ class BuildFlags:
         return _TORCH_DTYPES[self.dtype]
 
 
+class Frontend(nn.Module):
+    """The stub frontend's projection ``proj`` (d, d) of precomputed embeddings."""
+
+    def __init__(self, d, dtype, device, generator=None):
+        super().__init__()
+        self.proj = normal_param((d, d), dtype, device, generator)
+
+
 class Model(nn.Module):
     """Decoder LM with its weights.
 
@@ -57,10 +73,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, flags: BuildFlags = BuildFlags(), *,
                  device=None, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.frontend} frontends are not ported yet (ROADMAP Queue 1, "
-                "slice 5: vision and audio frontends)")
         dev = resolve_device(device)
         gen = None
         if seed is not None and dev.type != "meta":
@@ -72,6 +84,8 @@ class Model(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.head = LMHead(cfg.d_model, cfg.vocab_size, dtype, dev, gen)
+        if cfg.frontend:
+            self.frontend = Frontend(cfg.d_model, dtype, dev, gen)
         self.stack = transformer.Stack(cfg, dtype, dev, gen)
 
     @property
@@ -81,16 +95,75 @@ class Model(nn.Module):
     def _tokens(self, tokens):
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _embeds(self, embeds):
+        """Precomputed frontend embeddings, in the model dtype, projected."""
+        e = torch.as_tensor(embeds, device=self.device).to(self.flags.tdtype)
+        return e @ self.frontend.proj
+
+    # -- embedding of modality inputs -------------------------------------------
+    def _embed_inputs(self, batch):
+        """batch -> the embedded input (B, S, d): for vision the projected
+        ``image_embeds`` then the text embeddings, for audio the projected
+        ``frame_embeds``, else the token embeddings."""
+        frontend = self.cfg.frontend
+        if frontend == "vision":
+            return torch.cat([self._embeds(batch["image_embeds"]),
+                              self.embed(self._tokens(batch["tokens"]))], dim=1)
+        if frontend == "audio":
+            return self._embeds(batch["frame_embeds"])
+        return self.embed(self._tokens(batch["tokens"]))
+
     def _logits(self, hidden):
         h = self.final_norm(hidden, self.cfg.norm_eps)
         w = self.embed.table.T if self.cfg.tie_embeddings else self.head.w
         return h @ w
 
+    def _ce_sum(self, hidden, labels, mask):
+        """Sum over the masked positions of the fp32 cross entropy."""
+        logits = self._logits(hidden).float()
+        lz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.sum((lz - gold) * mask)
+
+    # -- train forward -----------------------------------------------------------
+    def loss_fn(self, batch):
+        """batch: tokens/labels (+ frontend embeds) -> (loss, {"ce", "aux"}).
+
+        Cross entropy in fp32 over the positions whose label is >= 0, plus
+        0.01 times the MoE layers' aux loss.  With ``flags.loss_chunks`` = n
+        > 1 the sequence is cut into n chunks whose logits are formed one
+        at a time (and, with gradients on, recomputed in the backward pass),
+        which caps the logits' memory."""
+        x = self._embed_inputs(batch)
+        hidden, aux, _ = self.stack.forward_full(x, self.flags, want_cache=False)
+        labels = self._tokens(batch["labels"])
+        mask = labels >= 0
+        labels = labels.clamp(min=0)
+        n = self.flags.loss_chunks
+        if n > 1:
+            if hidden.shape[1] % n:
+                raise ValueError(f"loss_chunks {n} does not divide the sequence "
+                                 f"length {hidden.shape[1]}")
+            total = hidden.new_zeros((), dtype=torch.float32)
+            for h, l, m in zip(hidden.chunk(n, dim=1), labels.chunk(n, dim=1),
+                               mask.chunk(n, dim=1)):
+                if torch.is_grad_enabled():
+                    total = total + checkpoint(self._ce_sum, h, l, m, use_reentrant=False)
+                else:
+                    total = total + self._ce_sum(h, l, m)
+        else:
+            total = self._ce_sum(hidden, labels, mask)
+        ce = total / mask.sum().clamp(min=1)
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux}
+
     # -- prefill / decode ----------------------------------------------------------
     def prefill(self, batch):
-        """batch {"tokens": (B, S)} -> (last-position logits (B, V), caches)."""
-        x = self.embed(self._tokens(batch["tokens"]))
-        hidden, caches = self.stack.forward_full(x, self.flags, want_cache=True)
+        """batch {"tokens": (B, S)}, plus ``image_embeds`` (B, F, d) for a
+        vision arch, or only ``frame_embeds`` (B, S, d) for an audio arch
+        -> (last-position logits (B, V), caches)."""
+        x = self._embed_inputs(batch)
+        hidden, _, caches = self.stack.forward_full(x, self.flags, want_cache=True)
         logits = self._logits(hidden[:, -1:, :])[:, 0]
         return logits, caches
 
@@ -102,6 +175,23 @@ class Model(nn.Module):
         x = self.embed(self._tokens(tokens))
         hidden, caches = self.stack.forward_decode(x, caches, pos)
         return self._logits(hidden)[:, 0], caches
+
+    def reference_leaves(self):
+        """[(parameter names, stacked?)] per leaf of the reference's param
+        tree: each weight of the reference's ``scan`` section is one leaf
+        stacked over its layer groups (names in group order), every other
+        parameter a leaf of its own.  The optimizers read this
+        (``train.optimizer``)."""
+        leaves = {}
+        for name, _ in self.named_parameters():
+            key, stacked = name, False
+            if name.startswith("stack.layers."):
+                idx, rest = name[len("stack.layers."):].split(".", 1)
+                section, _, li, _ = self.stack.layout[int(idx)]
+                if section == "scan":
+                    key, stacked = ("scan", li, rest), True
+            leaves.setdefault(key, ([], stacked))[0].append(name)
+        return list(leaves.values())
 
     def empty_caches(self, batch, seq_len):
         return transformer.empty_caches(self.cfg, batch, seq_len,

@@ -12,9 +12,12 @@ router and its logits stay fp32.  The expert products are batched matrix
 products (``torch.bmm``), left to the library as the reference leaves them
 to XLA.
 
-The reference also returns the Switch load-balance auxiliary loss, which
-needs the full softmax that K5 does not return; serving throws it away, so
-``moe_ffn`` returns the output only (the loss comes with training).
+``moe_ffn`` also returns the Switch load-balance auxiliary loss,
+E · Σ_e mean(p_e) · mean(sel_e) / k, as the reference does.  It needs the
+full softmax over the experts, which K5 does not return, so the loss takes
+a plain ``softmax`` of the same fp32 logits beside K5 (a K5 that also
+emits per-expert sums is queued in ROADMAP).  Serving does not want the
+loss: with ``want_aux=False`` it is not computed and ``None`` comes back.
 """
 from __future__ import annotations
 
@@ -70,8 +73,16 @@ def _rank_in_expert(flat_ids, e):
     return rank
 
 
-def moe_ffn(p: MoE, x, cfg):
-    """x: (B, S, D) -> out (B, S, D): routed plus shared experts."""
+def switch_aux_loss(gate_logits, top_ids, e, k):
+    """E · Σ_e mean_t(softmax_e) · mean_t(selected_e) / k (Switch, fp32)."""
+    me = torch.softmax(gate_logits, dim=-1).mean(dim=0)
+    ce = F.one_hot(top_ids, e).to(torch.float32).sum(dim=1).mean(dim=0) / k
+    return e * torch.sum(me * ce)
+
+
+def moe_ffn(p: MoE, x, cfg, want_aux: bool = True):
+    """x: (B, S, D) -> (out (B, S, D), aux loss | None): routed plus shared
+    experts, and the Switch loss when ``want_aux``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
@@ -84,6 +95,7 @@ def moe_ffn(p: MoE, x, cfg):
     weights = top_p / top_p.sum(dim=-1, keepdim=True)
 
     top_ids = top_ids.long()
+    aux = switch_aux_loss(gate_logits, top_ids, e, k) if want_aux else None
     rank = _rank_in_expert(top_ids.reshape(t * k), e).reshape(t, k)
     keep = rank < c
     slot = torch.where(keep, top_ids * c + rank, e * c)      # drops -> sentinel
@@ -109,4 +121,4 @@ def moe_ffn(p: MoE, x, cfg):
     out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + mlp(h, p.shared.wi_gate, p.shared.wi_up, p.shared.wo)
-    return out
+    return out, aux

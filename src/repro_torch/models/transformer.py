@@ -12,12 +12,27 @@ attention mixer, ``{"state", "conv"}`` for a Mamba-2 mixer.
 
 Mixers: ``attn``, ``attn_local`` (``models.attention``) and ``mamba``
 (``models.mamba2``); FFNs: ``dense``, ``moe`` (``models.moe``) and ``none``.
+
+Training (``forward_full`` without caches, with gradients on) sums the MoE
+layers' auxiliary losses and checkpoints activations per layer as
+``flags.remat`` says, the counterpart of the reference's ``jax.checkpoint``
+of its scan body: ``none`` keeps every activation; ``full`` keeps only
+each layer's input and recomputes the layer in the backward pass;
+``selective`` does the same but also keeps the outputs of the plain matrix
+products (``aten.mm``/``addmm``, products without batch dimensions), the
+counterpart of ``dots_with_no_batch_dims_saveable``.  The recompute runs
+the same operations on the same inputs, so the three modes give the same
+losses and gradients bit for bit on a deterministic device.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, mamba2, moe
@@ -51,22 +66,25 @@ class Layer(nn.Module):
         elif spec.ffn == "moe":
             self.ffn = moe.MoE(cfg, dtype, device, generator)
 
-    def _ffn(self, x):
+    def _ffn(self, x, want_aux=False):
+        """(x + ffn(x), the MoE's aux loss or None)."""
         if self.ffn_kind == "dense":
-            return x + self.ffn(x, self.cfg.norm_eps)
+            return x + self.ffn(x, self.cfg.norm_eps), None
         if self.ffn_kind == "moe":
-            return x + moe.moe_ffn(self.ffn, x, self.cfg)
-        return x
+            y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux)
+            return x + y, aux
+        return x, None
 
-    def full(self, x, flags):
-        """Full-seq layer.  Returns (x, cache)."""
+    def full(self, x, flags, want_aux=False):
+        """Full-seq layer.  Returns (x, aux | None, cache)."""
         if self.is_attn:
             h, cache = attention.full_attention(
                 self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
                 attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv)
         else:
             h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
-        return self._ffn(x + h), cache
+        x, aux = self._ffn(x + h, want_aux)
+        return x, aux, cache
 
     def decode(self, x, cache, pos):
         if self.is_attn:
@@ -74,7 +92,7 @@ class Layer(nn.Module):
                                                   window=self.window)
         else:
             h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
-        return self._ffn(x + h), cache
+        return self._ffn(x + h)[0], cache
 
 
 def _group_layout(cfg: ArchConfig):
@@ -115,6 +133,20 @@ def layer_layout(cfg: ArchConfig) -> List[Tuple[str, Optional[int], int, object]
     return out
 
 
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The selective policy: keep the plain matrix products, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _train_layer(layer, flags, x):
+    x, aux, _ = layer.full(x, flags, want_aux=True)
+    return x, aux
+
+
 class Stack(nn.Module):
     """The decoder layers, in the reference's section order."""
 
@@ -125,13 +157,36 @@ class Stack(nn.Module):
             Layer(spec, cfg, dtype, device, generator) for *_, spec in self.layout)
 
     def forward_full(self, x, flags, want_cache: bool):
-        """x: (B,S,D) embedded input -> (hidden (B,S,D), caches | None)."""
-        caches = []
-        for layer in self.layers:
-            x, c = layer.full(x, flags)
-            if want_cache:
+        """x: (B,S,D) embedded input -> (hidden (B,S,D), aux_total, caches | None).
+
+        With ``want_cache`` (prefill) the layers return their caches and no
+        aux loss is computed (``aux_total`` is None).  Without it (the training
+        forward) the MoE layers' aux losses are summed in fp32 and, when
+        gradients are on, each layer is checkpointed as ``flags.remat``
+        says."""
+        if want_cache:
+            caches = []
+            for layer in self.layers:
+                x, _, c = layer.full(x, flags)
                 caches.append(c)
-        return x, (caches if want_cache else None)
+            return x, None, caches
+        if flags.remat not in ("none", "selective", "full"):
+            raise ValueError(f"remat {flags.remat!r}: want 'none', 'selective' or 'full'")
+        remat = flags.remat != "none" and torch.is_grad_enabled()
+        kwargs = {}
+        if flags.remat == "selective":
+            kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                     _save_products)
+        aux_total = x.new_zeros((), dtype=torch.float32)
+        for layer in self.layers:
+            if remat:
+                x, aux = checkpoint(_train_layer, layer, flags, x, use_reentrant=False,
+                                    **kwargs)
+            else:
+                x, aux = _train_layer(layer, flags, x)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total, None
 
     def forward_decode(self, x, caches, pos):
         """x: (B,1,D) -> (hidden (B,1,D), caches), caches updated in place."""

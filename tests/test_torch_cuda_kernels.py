@@ -18,7 +18,9 @@ path also against the plain version in fp32 at one bf16 rounding, across
 chunks, odd chunks and head counts and every P and N, with every SM's
 shared memory filled with NaN or inf before a launch, each call counted
 once; the Python grid and block decode equal the C library's.  K5 (top-k
-gating): ids equal, ties included, and probabilities within 1e-6.  K4
+gating): ids equal, ties included, and probabilities within 1e-6; under
+autograd, its plain-PyTorch backward within 1e-6 of autograd through the
+plain version.  K4
 and K5 launched twice on the same inputs are bitwise equal.  The GP
 kernels are float64: w, g and the new rows of L and L⁻¹ within
 1e-10 · max(1, max|ref|), EHVI within 1e-8 absolute
@@ -540,6 +542,31 @@ def test_topk_kernel_matches_plain(cuda, t, e, k, ties):
     want_p, want_ids = k5.topk_gating_plain(logits, k)
     assert ids.dtype == torch.int32 and torch.equal(ids, want_ids)
     assert (p - want_p).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_autograd_backward_matches_plain(cuda, ties):
+    """K5 under autograd at the MoE trainer's shape (T 2048, E 64, k 6): one
+    forward launch, the same ids, and dL/dlogits from its plain-PyTorch
+    backward within 1e-6 of autograd through the plain version on the card."""
+    from repro_torch.kernels import topk_gating as k5
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    logits = torch.randn((2048, 64), generator=g, device=cuda)
+    if ties:
+        logits = torch.round(logits * 2) / 2
+    grad_p = torch.randn((2048, 6), generator=g, device=cuda)
+    a = logits.clone().requires_grad_(True)
+    before = k5.topk_gating.launches
+    p, ids = k5.topk_gating(a, 6)
+    (p * grad_p).sum().backward()
+    torch.cuda.synchronize()
+    assert k5.topk_gating.launches == before + 1 and p.grad_fn is not None
+    b = logits.clone().requires_grad_(True)
+    want_p, want_ids = k5.topk_gating_plain(b, 6)
+    (want_p * grad_p).sum().backward()
+    assert torch.equal(ids, want_ids)
+    assert (a.grad - b.grad).abs().max().item() <= 1e-6
 
 
 def test_raw_stream_accessor_is_the_current_stream(cuda):

@@ -33,6 +33,13 @@ for arch in ("mamba2-780m", "deepseek-moe-16b"):
     res = serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8",
                       "--gen", "4", "--device", "cpu", "--ssd-impl", "cuda"])
     assert res.tokens.shape == (2, 4), res.tokens.shape
+res = serve.main(["--arch", "llava-v1.5-7b", "--reduced", "--batch", "2", "--prompt-len", "8",
+                  "--gen", "4", "--device", "cpu"])
+assert res.tokens.shape == (2, 4), res.tokens.shape
+from repro_torch.launch import train
+losses = train.main(["--arch", "deepseek-moe-16b", "--reduced", "--batch", "2", "--seq", "8",
+                     "--steps", "2", "--log-every", "1", "--device", "cpu"])
+assert sorted(losses) == [1, 2], losses
 assert k4.ssd_scan.launches == k5.topk_gating.launches == fa.flash_attention.launches == 0
 from repro_torch.core import BayesOpt, tpu_pod_space
 from repro_torch.core.search import gp_cuda, gp_torch

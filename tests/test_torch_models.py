@@ -286,9 +286,3 @@ def test_slot_server_prompts_shorter_than_the_conv_window(name):
     got = run(SlotServer(tm, n_slots=2, max_len=16))
     assert got == run(JSlotServer(jm, params, n_slots=2, max_len=16))
     assert all(len(out) == 5 for out in got.values())
-
-
-@pytest.mark.parametrize("name", ["internvl2-2b", "musicgen-medium", "llava-v1.5-7b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced(get_arch(name)), device="cpu")

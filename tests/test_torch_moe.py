@@ -7,7 +7,8 @@ takes its plain version for CPU tensors), the Pallas kernel behind
 expert index first), probabilities within 1e-6 (``tests/test_kernels.py``'s
 tolerance).  ``moe_ffn`` is held against ``repro.models.moe.moe_ffn`` on
 reduced deepseek-moe-16b in fp32 at 5e-5, with shared experts, and with a
-capacity factor low enough that tokens are dropped.
+capacity factor low enough that tokens are dropped; its Switch aux loss
+at the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -104,9 +105,10 @@ def test_moe_ffn_matches_reference(capacity_factor, shared):
     assert mod.router.dtype == torch.float32
     assert hasattr(mod, "shared") == bool(shared)
     x = np.random.default_rng(2).standard_normal((3, 10, cfg.d_model)).astype(np.float32)
-    want, _ = jmoe.moe_ffn(params, jnp.asarray(x), jcfg)
-    got = moe.moe_ffn(mod, torch.from_numpy(x), cfg)
+    want, want_aux = jmoe.moe_ffn(params, jnp.asarray(x), jcfg)
+    got, aux = moe.moe_ffn(mod, torch.from_numpy(x), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    np.testing.assert_allclose(aux.item(), float(want_aux), **MODEL_TOL)
     # at the low capacity factors some assignments really are dropped
     h = torch.from_numpy(x).reshape(30, -1)
     logits = (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + cfg.norm_eps)) @ mod.router
@@ -121,6 +123,7 @@ def test_moe_ffn_keeps_the_dtype_and_router_in_fp32():
     mod = moe.MoE(cfg, torch.bfloat16, "cpu", torch.Generator().manual_seed(0))
     assert mod.router.dtype == torch.float32 and mod.experts.wo.dtype == torch.bfloat16
     x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(1))
-    out = moe.moe_ffn(mod, x.to(torch.bfloat16), cfg)
+    out, aux = moe.moe_ffn(mod, x.to(torch.bfloat16), cfg)
+    assert aux.dtype == torch.float32
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     assert torch.isfinite(out.float()).all()
