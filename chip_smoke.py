@@ -180,8 +180,31 @@ failed check and then prints no result):
    steps whose K5 launches must equal 3 MoE layers x (forward + recompute)
    x 10, the loss falling; step ms, tokens/s and peak memory.
 
-Standard output ends with a ``kernels`` JSON line (K3's and K5's entries
-also carry ``launches_by_path``), the nvidia-smi line and
+17. explore_train (slice 7b): the paper's sweep on a train shape,
+   ``launch.explore --workload llama2-7b --shape train_4k --algorithm
+   bayesopt --gp cuda --clients 2``, 14 samples (BayesOpt's 12 random picks
+   and two more), as given (ParEGO) and as its EHVI variant on the first
+   sweep's build cache; each build counts one whole train step of
+   llama2-7b at full width on ``meta`` (forward, backward, AdamW); every
+   record ok; K1a and K1b launched in both sweeps and K2 in the EHVI one
+   (counts set to 0 just before, read just after, equal to the GP's
+   counters), every recorded call held against its plain version; s per
+   build, the build share of wall, evals/s.
+18. train_sharded (slice 7b): an NCCL process group of one rank on the card
+   and ``ShardingPolicy(make_mesh_dp_tp(1, 1))``: deepseek-moe-16b as
+   train_main (b) runs it (full width, 4 layers, fp32, remat selective,
+   batch 4 × 512), 5 AdamW steps without and 5 with the policy (DTensor
+   parameters, optimizer slots and batches) from the same seed, the
+   largest relative loss gap at most 2e-4; K5's launches on the sharded
+   path (set to 0 just before, read just after) equal MoE layers ×
+   (forward + recompute) × steps; K5 against its plain version on the
+   sharded model (loss, router gradients); ``psum_int8`` over the one-rank
+   group bitwise equal to the local quantise and dequantise; a DTensor
+   train state (reduced deepseek-moe-16b, for time) through a checkpoint
+   and back into its placements, bitwise.
+
+Standard output ends with a ``kernels`` JSON line (K3's, K5's and the GP
+kernels' entries also carry ``launches_by_path``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  ``--only a,b`` builds the kernels and
 runs only the named phases, printing no result.
 """
@@ -1823,6 +1846,207 @@ def phase_explore_llava(tmp):
                              f"{len(cols['incremental'])} rows identical)")
 
 
+# The paper's sweep on a train shape (slice 7b): the explore command with
+# --shape train_4k, whose builds count a whole train step of llama2-7b at full
+# width on meta (about 5 s each on a CPU core); 14 samples take BayesOpt
+# past its 12 random picks, so the GP kernels run.  The EHVI sweep reuses the
+# ParEGO sweep's builds of the same random picks (--cache-dir).
+TRAIN_EXPLORE = ["--workload", "llama2-7b", "--shape", "train_4k", "--algorithm", "bayesopt",
+                 "--seed", "0"]
+TRAIN_EXPLORE_SAMPLES = 14
+
+
+def phase_explore_train(tmp):
+    """``launch.explore --workload llama2-7b --shape train_4k --algorithm
+    bayesopt --gp cuda --clients 2``, as given (ParEGO) and as its EHVI
+    variant: every record ok; K1a and K1b launched in both, K2 in the EHVI
+    variant (counts set to 0 just before each sweep, read just after, equal
+    to the GP's counters); each recorded call held against its plain
+    version.  Prints s per build, the build share of wall and evals/s."""
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "train_cache")
+    launches_by = {}
+    for strategy in ("parego", "ehvi"):
+        argv = TRAIN_EXPLORE + ["--gp", "cuda", "--clients", "2",
+                                "--samples", str(TRAIN_EXPLORE_SAMPLES), "--cache-dir", cache,
+                                "--out", os.path.join(tmp, f"train_{strategy}.csv")]
+        calls = []
+        with searcher(strategy):
+            res, launches, by_form, busy = device_busy(counted_explore, argv, calls)
+        check_sweep(res, TRAIN_EXPLORE_SAMPLES, f"explore_train {strategy}")
+        need = ("gp_w", "gp_g") + (("gp_ehvi",) if strategy == "ehvi" else ())
+        recorded = check_recorded(calls, f"explore_train {strategy}")
+        emit("explore_train", strategy=strategy, argv=argv, launches=launches,
+             launches_by_form=by_form, recorded_calls={k: v["calls"] for k, v in recorded.items()},
+             **explore_summary(res, busy, 2))
+        if min(launches[k] for k in need) == 0:
+            raise AssertionError(f"explore_train {strategy}: {need} not all launched: "
+                                 f"{launches}")
+        launches_by[strategy] = launches
+    emit("explore_train", phase_seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    return launches_by
+
+
+# The sharded trainer (slice 7b) on the card's one rank: an NCCL group of one,
+# ShardingPolicy(make_mesh_dp_tp(1, 1)), deepseek-moe-16b as train_moe runs it
+# (full width, 4 layers, fp32, remat selective, batch 4 x 512), 5 steps with
+# the policy and 5 without from the same seed.
+SHARDED_STEPS = 5
+SHARDED_LOSS_RTOL = 2e-4            # tests/test_sharding.py's tolerance
+TRAIN_DEVICE, TRAIN_BACKEND = "cuda", "nccl"
+
+
+def _moe_train(cfg, flags, seed, policy, batches):
+    """``SHARDED_STEPS`` AdamW steps of a fresh model (weights from ``seed``):
+    (losses, K5's launches in them)."""
+    import torch
+
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import Model
+    from repro_torch.train import adamw, cosine_schedule, init_train_state, make_train_step
+
+    model = Model(cfg, flags, device=TRAIN_DEVICE, seed=seed, policy=policy)
+    opt = adamw(cosine_schedule(1e-3, 1, SHARDED_STEPS))
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    sync = torch.cuda.synchronize if TRAIN_DEVICE == "cuda" else (lambda: None)
+    sync()
+    k5.topk_gating.launches = 0
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(met["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = k5.topk_gating.launches
+    # ---- end of the counted run
+    return model, losses, ms, launches
+
+
+def phase_train_sharded(seed, tmp):
+    """The sharded train path on the card: losses with the policy against
+    without (relative gap <= SHARDED_LOSS_RTOL), K5's launches on the
+    sharded path (set to 0 just before, read just after; > 0), K5 against
+    its plain version under the policy (loss and router gradients),
+    ``psum_int8`` over the one-rank group against the local quantise and
+    dequantise (bitwise), and a checkpoint of a DTensor train state (reduced
+    deepseek-moe-16b, for time) written and restored into its placements."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.launch.mesh import make_mesh_dp_tp
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import compress
+    from repro_torch.parallel.sharding import ShardingPolicy
+    from repro_torch.train import (CheckpointManager, adamw, cosine_schedule, init_train_state,
+                                   load_train_state)
+    from repro_torch.train.checkpoint import _flatten
+    from torch.distributed.tensor import DTensor
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(TRAIN_BACKEND, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_dp_tp(1, 1)
+        cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+        n_moe = sum(1 for s in cfg.layer_specs() if s.ffn == "moe")
+        flags = BuildFlags(dtype="float32", remat="selective", sp=False)
+        data = SyntheticLM(cfg, DataConfig(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed))
+        plain_b = [to_device(data.batch(i), TRAIN_DEVICE) for i in range(SHARDED_STEPS)]
+        model, plain, plain_ms, plain_launches = _moe_train(cfg, flags, seed, None, plain_b)
+        del model
+        policy = ShardingPolicy(mesh)
+        sharded_b = [to_device(data.batch(i), TRAIN_DEVICE, policy)
+                     for i in range(SHARDED_STEPS)]
+        if TRAIN_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model, sharded, sharded_ms, launches = _moe_train(cfg, flags, seed, policy, sharded_b)
+        peak = torch.cuda.max_memory_allocated() if TRAIN_DEVICE == "cuda" else None
+        gap = max(abs(a - b) / abs(b) for a, b in zip(sharded, plain))
+        want = n_moe * 2 * SHARDED_STEPS
+        emit("train_sharded", arch=cfg.name, n_layers=MOE_TRAIN_LAYERS, steps=SHARDED_STEPS,
+             mesh=list(zip(policy.axis_names, policy.axis_sizes.values())),
+             placements_sample={n: str(p.placements) for n, p in
+                                list(model.named_parameters())[:4]},
+             losses_sharded=sharded, losses_plain=plain, max_rel_loss_gap=gap,
+             rtol=SHARDED_LOSS_RTOL, k5_launches=launches, k5_expected=want,
+             plain_k5_launches=plain_launches, step_ms_sharded=sharded_ms,
+             step_ms_plain=plain_ms, max_memory_allocated=peak)
+        if not gap <= SHARDED_LOSS_RTOL:
+            raise AssertionError(f"train_sharded: loss gap {gap} > {SHARDED_LOSS_RTOL}")
+        if launches == 0 or (TRAIN_DEVICE == "cuda" and launches != want):
+            raise AssertionError(f"train_sharded: K5 launched {launches} times, want {want}")
+
+        # ---- K5 against its plain version on the sharded path
+        routers = [p for n, p in model.named_parameters() if n.endswith("router")]
+        out = {}
+        for label, gate in (("kernel", moe_mod.topk_gating), ("plain", k5.topk_gating_plain)):
+            moe_mod.topk_gating = gate
+            try:
+                with policy.context():
+                    loss, _ = model.loss_fn(sharded_b[0])
+                    grads = torch.autograd.grad(loss, routers)
+                out[label] = (loss.full_tensor().item(),
+                              [g.full_tensor() for g in grads])
+            finally:
+                moe_mod.topk_gating = k5.topk_gating
+        loss_err = abs(out["kernel"][0] - out["plain"][0])
+        g_scale = max(g.abs().max().item() for g in out["plain"][1])
+        g_err = max((a - b).abs().max().item() for a, b in zip(out["kernel"][1], out["plain"][1]))
+        ok = (loss_err <= TRAIN_LOSS_RTOL * abs(out["plain"][0])
+              and g_err <= ROUTER_GRAD_RTOL * g_scale and g_scale > 0)
+        emit("train_sharded_k5", loss_kernel=out["kernel"][0], loss_plain=out["plain"][0],
+             loss_abs_err=loss_err, router_grad_max_abs_err=g_err,
+             router_grad_max_abs=g_scale, ok=ok)
+        if not ok:
+            raise AssertionError("train_sharded: K5 on the sharded path disagrees with its "
+                                 "plain version")
+        del model, out, grads, loss, sharded_b, plain_b
+
+        # ---- psum_int8 over the one-rank group
+        x = torch.randn(4096, generator=torch.Generator().manual_seed(seed)).to(TRAIN_DEVICE)
+        got = compress.psum_int8(x, (mesh, "data"))
+        q, scale = compress._quantize(x)
+        same = bool(torch.equal(got, compress._dequantize(q, scale)))
+        emit("train_sharded_psum_int8", n=x.numel(), bitwise_equal=same)
+        if not same:
+            raise AssertionError("psum_int8 over one rank differs from the local Q/DQ")
+
+        # ---- a DTensor train state through a checkpoint
+        small = reduced(get_arch(MOE_ARCH))
+        opt = adamw(cosine_schedule(1e-3, 1, 10))
+        states = []
+        for s_ in (seed, seed + 1):
+            m = Model(small, flags, device=TRAIN_DEVICE, seed=s_, policy=ShardingPolicy(mesh))
+            states.append(init_train_state(m, opt))
+        ck = CheckpointManager(os.path.join(tmp, "sharded_ck"), async_save=False)
+        ck.save(3, states[0], block=True)
+        load_train_state(states[1], ck.restore(3, states[1]))
+        flat = [_flatten(st) for st in states]
+        full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+        same_ck = all(torch.equal(full(flat[0][k]), full(flat[1][k])) for k in flat[0])
+        placed = all(type(flat[1][k]) is type(flat[0][k]) for k in flat[0])
+        emit("train_sharded_checkpoint", leaves=len(flat[0]), bitwise_equal=same_ck,
+             placements_kept=placed)
+        if not (same_ck and placed):
+            raise AssertionError("train_sharded: the DTensor checkpoint did not round-trip")
+    finally:
+        dist.destroy_process_group()
+    emit("train_sharded", phase_seconds=time.perf_counter() - t_phase,
+         nvidia_smi=nvidia_smi_line())
+    return {"topk_gating": launches}
+
+
 # ---------------------------------------------------------------------------
 # The GP path (the searcher's surrogate): K1a, K1b, K2
 # ---------------------------------------------------------------------------
@@ -3016,6 +3240,8 @@ def run_only(names):
         "train_main": lambda: phase_train_main(tempfile.mkdtemp(prefix="train")),
         "train_moe": lambda: phase_train_moe(SEED),
         "explore_llava": lambda: phase_explore_llava(tempfile.mkdtemp(prefix="llava")),
+        "explore_train": lambda: phase_explore_train(tempfile.mkdtemp(prefix="xtrain")),
+        "train_sharded": lambda: phase_train_sharded(SEED, tempfile.mkdtemp(prefix="shard")),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -3075,13 +3301,20 @@ def main(only=None):
         phase_serve_explore_main(explored, tmp)
         phase_explore_llava(tmp)
         train_launches = phase_train_main(tmp)
+        train_gp = phase_explore_train(tmp)
+        sharded = phase_train_sharded(SEED, tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
     paths = {"flash_attention": {ARCH: launches["flash_attention"],
                                  MOE_ARCH: moe_launches["flash_attention"], **frontend_launches},
              "topk_gating": {f"{MOE_ARCH} serving": moe_launches["topk_gating"],
                              f"{MOE_ARCH} training ({MOE_TRAIN_LAYERS} layers)":
-                                 train_launches["topk_gating"]}}
+                                 train_launches["topk_gating"],
+                             f"{MOE_ARCH} sharded training ({MOE_TRAIN_LAYERS} layers, "
+                             f"{SHARDED_STEPS} steps)": sharded["topk_gating"]}}
+    for name in ("gp_w", "gp_g", "gp_ehvi"):
+        paths[name] = {f"explore_train {strategy}": train_gp[strategy][name]
+                       for strategy in train_gp}
     for k in kernels:
         if k["name"] in paths:
             k["launches_by_path"] = paths[k["name"]]

@@ -66,10 +66,12 @@ class SyntheticLM:
             step += 1
 
 
-def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+def to_device(batch: Dict[str, Any], device, policy=None) -> Dict[str, Any]:
     """Every array of ``batch`` as a tensor on ``device`` (token ids and labels
     as int64, embeddings as they are); the counterpart of the reference's
-    ``device_put_batch`` on one device."""
+    ``device_put_batch``.  With a sharding policy each becomes a DTensor
+    placed by ``batch_spec`` (every rank makes the same batch from the same
+    (seed, step) and keeps its rows)."""
     import torch
 
     out = {}
@@ -78,4 +80,4 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
         if not t.is_floating_point():
             t = t.long()
         out[key] = t.to(device, non_blocking=True)
-    return out
+    return out if policy is None else policy.batch_shardings(out)

@@ -43,19 +43,63 @@ Per device, with n = dp·tp devices:
   head ends in an all-gather of the (batch/dp, vocab) logits,
   Y·(g−1)/g.  At tp = 1 there are none.
 
+The model is built with the reference's sharding policy on a shape-only
+(data, model) = (dp, tp) mesh (``mesh_policy``), which distributes nothing
+here but gives the MoE layers the reference's dispatch groups:
+``moe_groups`` = dp when dp divides the batch, each group with its own
+capacity.
+
 A vision or audio arch's prefill takes its frontend embeddings as the
 reference's ``input_specs`` makes them (``prefill_inputs``); decode steps
 take tokens.
 
+A train cell counts one whole train step of the reference's
+``make_train_step`` with the default ``TrainStepConfig`` (one microbatch,
+clipping at 1.0): the loss (``flags.remat`` and ``flags.loss_chunks``
+apply), its gradients (``torch.autograd.grad``, with the recompute that
+remat adds) and the optimizer's update of every parameter, under the same
+mode.  The optimizer follows ``pick_optimizer``'s rule: AdamW, or
+Adafactor above 100e9 parameters; ``meta["optimizer"]`` names it.  The
+train state is made before the count and is not counted as work.  Per
+device, with the reference's sharding rules (``parallel.sharding`` on a
+shape-only ``(data, model)`` mesh of dp × tp, ``flags.fsdp``):
+
+* ``arg_bytes``: each leaf of the state over the devices its spec splits it
+  over (parameters and AdamW's moments by the parameter rules, Adafactor's
+  factored slots replicated, as the reference's rules leave them), plus the
+  batch by ``batch_spec``; ``output_bytes``: the new state, as large;
+* ``temp_bytes``: the peak of live intermediates (activations, gradients,
+  the optimizer's temporaries) over n;
+* the collectives (``train_collective_bytes``), per device, with the ring
+  costs above, P_m a parameter's bytes over its model-axis share, X the
+  (B·S/dp, d_model) activation's bytes and R the mixers plus FFNs:
+  - FSDP (``fsdp``, dp > 1), for each parameter its spec splits over
+    ``data``: two all-gathers over dp (forward, and again for the
+    backward), 2·P_m·(dp−1)/dp;
+  - the gradient reduction over dp: a reduce-scatter into those shards,
+    P_m·(dp−1)/dp, with ``grad_rs``; an all-reduce, 2·P_m·(dp−1)/dp,
+    without it and for every parameter not split over ``data``;
+  - tensor parallelism (tp > 1): each of the R reductions of X in the
+    forward pass, once more for the input gradients in the backward pass,
+    and once more with remat (``selective`` or ``full``), whose recompute
+    runs the forward again: an all-reduce 2·X·(tp−1)/tp each, or with
+    ``sp`` an all-gather plus a reduce-scatter, X·(tp−1)/tp each; the
+    vocab-sharded cross entropy's max and sum, two fp32 all-reduces of
+    B·S/dp values.
+
+``meta["one_device_bytes"]`` is what the whole cell holds on one device,
+unsharded: the weights (a train cell's whole state, updated in place), the
+inputs, the peak of intermediates and the outputs; ``launch.dryrun``'s fit
+check reads it.
+
 ``hbm_est_per_device`` is not set here: ``launch.explore.make_build_fn``
-sets it from ``roofline/traffic.py``, as the reference does.  Train shapes
-come with ROADMAP slice 7b.
+sets it from ``roofline/traffic.py``, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -63,11 +107,21 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.model import BuildFlags, Model
+from repro_torch.parallel.sharding import ShardingPolicy
 from repro_torch.roofline.analysis import Artifact
+from repro_torch.train.optimizer import adafactor, adamw, cosine_schedule
+from repro_torch.train.train_step import TrainStepConfig, init_train_state, make_train_step
 
-SLICE_7 = ("train shapes are not ported yet (ROADMAP slice 7b: sharding, "
-           "the train cells, the dry run)")
+
+def pick_optimizer(arch: ArchConfig, name: Optional[str] = None):
+    """AdamW by default; Adafactor where AdamW's state cannot fit the
+    reference's pod (llama4-maverick-400b: 400e9 × 8 B of fp32 slots)."""
+    if name is None:
+        name = "adafactor" if arch.param_count() > 100e9 else "adamw"
+    sched = cosine_schedule(3e-4, 2000, 100_000)
+    return (adafactor(sched) if name == "adafactor" else adamw(sched)), name
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -177,13 +231,125 @@ def prefill_inputs(arch: ArchConfig, b: int, s: int, dtype, device="meta"):
     return {"tokens": tokens(s)}
 
 
-def build_cell(arch: ArchConfig, shape: ShapeConfig, dp: int, tp: int,
-               flags: BuildFlags = BuildFlags()) -> BuiltCell:
-    """Count one prefill or decode step of ``arch`` at ``shape`` on meta."""
-    if shape.kind == "train":
-        raise NotImplementedError(SLICE_7)
+def mesh_policy(dp: int, tp: int, flags: BuildFlags) -> ShardingPolicy:
+    """The reference's rules on a shape-only (data, model) = (dp, tp) mesh."""
+    return ShardingPolicy(MeshShape((dp, tp), ("data", "model")), fsdp=flags.fsdp, sp=flags.sp)
+
+
+def train_collective_bytes(arch: ArchConfig, shape: ShapeConfig, flags: BuildFlags,
+                           dp: int, tp: int, param_shares) -> Dict[str, float]:
+    """Per-device wire bytes of one train step by collective kind (the
+    module docstring's formulas).  ``param_shares``: per parameter, (its
+    bytes, its model-axis share, split over ``data``?)."""
+    out: Dict[str, float] = {}
+
+    def add(kind, v):
+        if v:
+            out[kind] = out.get(kind, 0.0) + v
+    if dp > 1:
+        f = (dp - 1) / dp
+        for nbytes, model_share, data_split in param_shares:
+            pm = nbytes / model_share
+            if data_split:
+                add("all-gather", 2 * pm * f)
+                if flags.grad_rs:
+                    add("reduce-scatter", pm * f)
+                else:
+                    add("all-reduce", 2 * pm * f)
+            else:
+                add("all-reduce", 2 * pm * f)
+    if tp > 1:
+        f = (tp - 1) / tp
+        tokens = shape.global_batch * shape.seq_len / dp
+        x = tokens * arch.d_model * flags.tdtype.itemsize
+        n_red = sum(1 + (s.ffn != "none") for s in arch.layer_specs())
+        passes = 2 + (flags.remat != "none")
+        if flags.sp:
+            add("all-gather", passes * n_red * x * f)
+            add("reduce-scatter", passes * n_red * x * f)
+        else:
+            add("all-reduce", passes * n_red * 2 * x * f)
+        add("all-reduce", 2 * 2 * tokens * 4 * f)
+    return out
+
+
+def train_inputs(arch: ArchConfig, b: int, s: int, dtype, device="meta"):
+    """A train batch: the prefill inputs of ``s`` positions and (B, S) labels."""
+    batch = prefill_inputs(arch, b, s, dtype, device)
+    batch["labels"] = torch.zeros((b, s), dtype=torch.long, device=device)
+    return batch
+
+
+def _count_train_step(model, opt, batch) -> CostMode:
+    """One train step of ``model`` on ``batch`` counted under a CostMode;
+    every intermediate is freed when it returns."""
+    tsc = TrainStepConfig()
+    state = init_train_state(model, opt, tsc)
+    step = make_train_step(model, opt, tsc)
+    with CostMode() as mode:
+        step(state, batch)
+    return mode
+
+
+def _slot_bytes(p, opt_name: str) -> int:
+    """The optimizer's fp32 slots of parameter ``p``: AdamW's m and v;
+    Adafactor's factored row and column moments (both of the last two dims
+    at least 128) or one full moment."""
+    if opt_name == "adamw":
+        return 2 * 4 * p.numel()
+    shape = tuple(p.shape)
+    if len(shape) >= 2 and min(shape[-2:]) >= 128:
+        return 4 * (p.numel() // shape[-1] + p.numel() // shape[-2])
+    return 4 * p.numel()
+
+
+def _build_train(arch, shape, dp, tp, flags, optimizer) -> BuiltCell:
     n_dev = dp * tp
-    model = Model(arch, flags, device="meta", seed=None)
+    opt, opt_name = pick_optimizer(arch, optimizer)
+    policy = mesh_policy(dp, tp, flags)
+    model = Model(arch, flags, device="meta", seed=None, policy=policy)
+    batch = train_inputs(arch, shape.global_batch, shape.seq_len, flags.tdtype)
+    mode = _count_train_step(model, opt, batch)
+    specs = policy.param_specs(model)
+    state = whole = 4.0                      # the step
+    param_shares = []
+    for name, p in model.named_parameters():
+        spec, nbytes, slots = specs[name], _nbytes(p), _slot_bytes(p, opt_name)
+        split = policy.shards(spec)
+        # AdamW's moments are placed as the parameter, Adafactor's replicated
+        state += nbytes / split + (slots / split if opt_name == "adamw" else slots)
+        whole += nbytes + slots
+        used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+        param_shares.append((nbytes, tp if "model" in used else 1, "data" in used))
+    in_bytes = sum(_nbytes(t) / policy.shards(policy.batch_spec(tuple(t.shape)))
+                   for t in batch.values())
+    coll = train_collective_bytes(arch, shape, flags, dp, tp, param_shares)
+    temp = mode.peak - mode.live
+    art = Artifact(
+        flops_per_device=mode.flops / n_dev,
+        bytes_per_device=mode.bytes / n_dev,
+        wire_bytes_per_device=sum(coll.values()),
+        collectives=coll,
+        arg_bytes=int(state + in_bytes),
+        temp_bytes=int(temp / n_dev),
+        output_bytes=int(state),
+        n_devices=n_dev)
+    # on one device: the state, updated in place, the batch and the peak
+    one = whole + sum(_nbytes(t) for t in batch.values()) + temp
+    return BuiltCell("train", art, n_dev, {"arch": arch.name, "shape": shape.name,
+                                           "optimizer": opt_name,
+                                           "one_device_bytes": int(one)})
+
+
+def build_cell(arch: ArchConfig, shape: ShapeConfig, dp: int, tp: int,
+               flags: BuildFlags = BuildFlags(), optimizer: Optional[str] = None
+               ) -> BuiltCell:
+    """Count one train, prefill or decode step of ``arch`` at ``shape`` on
+    meta (``optimizer``: a train cell's, else ``pick_optimizer``'s)."""
+    if shape.kind == "train":
+        return _build_train(arch, shape, dp, tp, flags, optimizer)
+    n_dev = dp * tp
+    model = Model(arch, flags, device="meta", seed=None, policy=mesh_policy(dp, tp, flags))
     b = shape.global_batch
     if shape.kind == "prefill":
         inputs = (prefill_inputs(arch, b, shape.seq_len, flags.tdtype),)
@@ -211,7 +377,10 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, dp: int, tp: int,
         temp_bytes=int(temp / n_dev),
         output_bytes=int(out_bytes / n_dev),
         n_devices=n_dev)
-    return BuiltCell(shape.kind, art, n_dev, {"arch": arch.name, "shape": shape.name})
+    # on one device: the weights, the inputs, the peak and the outputs
+    one = params + in_bytes + temp + out_bytes
+    return BuiltCell(shape.kind, art, n_dev, {"arch": arch.name, "shape": shape.name,
+                                              "one_device_bytes": int(one)})
 
 
 # ---------------------------------------------------------------------------

@@ -174,7 +174,8 @@ def make_build_fn(args, jc):
         cell = build_cell(arch, shape, dp, tp, flags)
         art = cell.artifact
         art.hbm_est_per_device = analytic_hbm_bytes_per_device(
-            arch, shape, flags, n_dev, dp, tp)
+            arch, shape, flags, n_dev, dp, tp,
+            optimizer=cell.meta.get("optimizer", "adamw"))
         return art, {}
 
     return build

@@ -17,6 +17,18 @@ MoE's combine gather accumulate with atomics otherwise.  ``--fault-at N``
 injects a crash at step N (exit code 42) after draining the checkpoint
 writer.  Every logged step prints its loss also as ``float.hex``, so two
 runs can be compared bit for bit.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) every process
+joins the process group (gloo with ``--device cpu``, NCCL on the card,
+each rank on ``cuda:LOCAL_RANK``) and, as the reference does
+(``repro/launch/train.py:59-60``), the model is sharded by
+``ShardingPolicy(make_host_mesh(), sp=False)``: the batch over the ranks,
+the parameters and optimizer slots FSDP-sharded.  Rank 0 alone logs and
+writes checkpoints (``train.checkpoint``); a crash at ``--fault-at`` waits
+for rank 0's writer at a barrier.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu --reduced \
+        --batch 4 --seq 32 --steps 8 --save-every 3 --checkpoint-dir /tmp/ck
 """
 from __future__ import annotations
 
@@ -65,19 +77,59 @@ def main(argv=None):
         torch.use_deterministic_algorithms(was_deterministic)
 
 
+def _world(args):
+    """(rank, world, device): from ``torchrun``'s environment, with the
+    process group started when the world is larger than one."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 0, 1, args.device
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    device = args.device
+    if not cpu:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return dist.get_rank(), world, device
+
+
 def _train(args):
+    rank, world, device = _world(args)
+    try:
+        return _train_on(args, rank, world, device)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train_on(args, rank, world, device):
+    import torch.distributed as dist
+
     from repro_torch.configs import get_arch, reduced
     from repro_torch.data import DataConfig, SyntheticLM, to_device
     from repro_torch.models import BuildFlags, Model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingPolicy
     from repro_torch.train import (CheckpointManager, TrainStepConfig, adafactor, adamw,
                                    cosine_schedule, init_train_state, load_train_state,
                                    make_train_step)
 
+    say = print if rank == 0 else (lambda *a, **kw: None)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
+    policy = None
+    if world > 1:
+        mesh = make_host_mesh()
+        policy = ShardingPolicy(mesh, sp=False)
+        say(f"[train] world {world}: ShardingPolicy over {policy.axis_names} "
+            f"{world}", flush=True)
     flags = BuildFlags(dtype=args.dtype, remat=args.remat, sp=False)
-    model = Model(arch, flags, device=args.device, seed=args.seed)
+    model = Model(arch, flags, device=device, seed=args.seed, policy=policy)
     sched = cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps)
     opt = adafactor(sched) if args.optimizer == "adafactor" else adamw(sched)
     tsc = TrainStepConfig(microbatch=args.microbatch, grad_compress=args.grad_compress)
@@ -92,7 +144,7 @@ def _train(args):
         if latest is not None:
             load_train_state(state, ck.restore(latest, state, cfg=arch))
             start = latest
-            print(f"[train] resumed from step {start}", flush=True)
+            say(f"[train] resumed from step {start}", flush=True)
 
     data = SyntheticLM(arch, DataConfig(args.batch, args.seq, args.seed))
     losses = {}
@@ -104,14 +156,16 @@ def _train(args):
                 # drained; mid-write crashes are separately survivable via
                 # the tmp+rename atomic publish (restore ignores .tmp dirs)
                 ck.wait()
-            print(f"[train] injected fault at step {step}", flush=True)
+            if world > 1:
+                dist.barrier()          # rank 0's writer is drained
+            say(f"[train] injected fault at step {step}", flush=True)
             raise SystemExit(42)
-        batch = to_device(data.batch(step), model.device)
+        batch = to_device(data.batch(step), model.device, policy)
         state, metrics = step_fn(state, batch)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             loss = float(metrics["loss"])
             losses[step + 1] = loss
-            print(f"[train] step {step+1:5d} loss {loss:.4f} ({loss.hex()}) "
+            say(f"[train] step {step+1:5d} loss {loss:.4f} ({loss.hex()}) "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0)/(step-start+1)*1e3:.0f} ms/step)", flush=True)
         if ck and (step + 1) % args.save_every == 0:
@@ -120,7 +174,7 @@ def _train(args):
         if args.steps % args.save_every or start == args.steps:
             ck.save(args.steps, state, block=True)
         ck.wait()       # a save at the last step is already in flight: not written twice
-    print("[train] done", flush=True)
+    say("[train] done", flush=True)
     return losses
 
 

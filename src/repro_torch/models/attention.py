@@ -11,6 +11,13 @@ Weights keep the reference layouts: ``wq`` (d, H, dh), ``wk``/``wv``
 (B, S, Hkv, dh).  Unlike the JAX package, ``decode_attention`` writes the new
 token's K/V into the cache in place (the reference returns a new cache and
 the engine donates the old one); it returns the same dict.
+
+Under a sharding policy (``parallel.sharding``) the inputs are DTensors:
+``full_attention`` moves q, k and v to the reference's placements
+(``constrain_attn_q``/``constrain_attn_kv``) and runs the plain grouped
+path on them (a hand-written kernel has no DTensor rule; training takes
+the plain path anyway); ``decode_attention`` writes the new token into
+the shard of a sequence-sharded cache that holds its position.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
-from repro_torch.models.layers import RMSNorm, apply_rope, normal_param
+from repro_torch.models.layers import RMSNorm, apply_rope, linear, normal_param
+from repro_torch.parallel.sharding import is_distributed
 
 
 class Attention(nn.Module):
@@ -36,15 +44,15 @@ def _project(p: Attention, x, cfg):
     """x (B, S, D) -> q (B,S,H,dh), k, v (B,S,Hkv,dh), all contiguous."""
     b, s, d = x.shape
     hx = p.norm(x, cfg.norm_eps)
-    q = (hx @ p.wq.reshape(d, -1)).view(b, s, cfg.n_heads, cfg.d_head)
-    k = (hx @ p.wk.reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (hx @ p.wv.reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = linear(hx, p.wq.reshape(d, -1)).view(b, s, cfg.n_heads, cfg.d_head)
+    k = linear(hx, p.wk.reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = linear(hx, p.wv.reshape(d, -1)).view(b, s, cfg.n_kv_heads, cfg.d_head)
     return q, k, v
 
 
 def _out(p: Attention, o):
     b, s, h, dh = o.shape
-    return o.reshape(b, s, h * dh) @ p.wo.reshape(h * dh, -1)
+    return linear(o.reshape(b, s, h * dh), p.wo.reshape(h * dh, -1))
 
 
 def _gqa_attend(q, k, v, scale, mask):
@@ -68,7 +76,7 @@ def _gqa_attend(q, k, v, scale, mask):
 
 
 def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla",
-                   attn_block_q=256, attn_block_kv=256):
+                   attn_block_q=256, attn_block_kv=256, policy=None):
     """Causal (optionally sliding-window) self attention over the whole seq.
 
     x: (B, S, D) -> (out (B, S, D), cache {k, v}: (B, S, Hkv, dh))
@@ -80,6 +88,12 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache = {"k": k, "v": v}
+    if policy is not None:
+        q = policy.constrain_attn_q(q)
+        k = policy.constrain_attn_kv(k)
+        v = policy.constrain_attn_kv(v)
+        if is_distributed(q):
+            impl = "xla"
     if impl == "flash":
         o = flash_attention(q, k, v, causal=True, window=window,
                             block_q=attn_block_q, block_kv=attn_block_kv)
@@ -113,7 +127,12 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
     q = apply_rope(q, posb, cfg.rope_theta)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)
 
-    if per_slot:
+    if is_distributed(cache["k"]):
+        if per_slot:
+            raise NotImplementedError("per-slot positions into a sharded cache")
+        _write_sharded(cache["k"], int(pos), k_new)
+        _write_sharded(cache["v"], int(pos), v_new)
+    elif per_slot:
         rows = torch.arange(b, device=x.device)
         cache["k"][rows, posb[:, 0]] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][rows, posb[:, 0]] = v_new[:, 0].to(cache["v"].dtype)
@@ -128,6 +147,24 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
     mask = mask[:, None, None, None, :]  # (B, 1, 1, 1, S) over (b,k,r,q,s)
     o = _gqa_attend(q, cache["k"], cache["v"], cfg.d_head ** -0.5, mask)
     return _out(p, o), cache
+
+
+@torch.no_grad()
+def _write_sharded(cache, pos, new):
+    """Write ``new`` (B, 1, Hkv, dh) at sequence position ``pos`` of the
+    DTensor ``cache`` (B, S, Hkv, dh): on the rank whose shard holds it, in
+    the shard's own storage."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in cache.placements]
+    new_local = new.redistribute(cache.device_mesh, want).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, cache.device_mesh,
+                                                          cache.placements)
+    lo = offset[1]
+    if lo <= pos < lo + shape[1]:
+        cache.to_local()[:, pos - lo] = new_local[:, 0].to(cache.dtype)
 
 
 def empty_cache(cfg, batch, seq_len, dtype, device):

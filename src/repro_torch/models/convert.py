@@ -75,6 +75,23 @@ def _layer_node(tree, section, group, li):
 _TOP = ("embed", "final_norm", "head", "frontend")
 
 
+def layer_prefixes(cfg) -> List[str]:
+    """Per port layer, the reference's path to it: ``scan/l{i}``,
+    ``head_layers/g{j}/l{i}`` or ``tail/l{i}`` (a scanned leaf also carries
+    the leading group axis)."""
+    return [f"{section}/l{li}" for section, _, li, _ in layer_layout(cfg)]
+
+
+def reference_path(name: str, prefixes: List[str]) -> str:
+    """A port parameter (or per-layer cache) name -> the reference's "/"-joined
+    path of its leaf, e.g. ``stack.layers.3.mixer.wq`` -> ``scan/l1/mixer/wq``
+    (``prefixes`` from ``layer_prefixes``)."""
+    if name.startswith("stack.layers."):
+        idx, rest = name[len("stack.layers."):].split(".", 1)
+        return f"{prefixes[int(idx)]}/{rest.replace('.', '/')}"
+    return name.replace(".", "/")
+
+
 def params_from_jax(np_tree, cfg) -> Dict[str, torch.Tensor]:
     """The reference's param tree (or one shaped like it: gradients, AdamW's
     moments) -> a state dict for the port's ``Model``; where the tree holds

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import is_distributed
+
 
 def normal_param(shape, dtype, device, generator: Optional[torch.Generator],
                  scale: float = 0.02) -> nn.Parameter:
@@ -88,9 +90,19 @@ class LMHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def linear(x, w):
+    """x (..., D) @ w (D, F).  A three-dim DTensor ``x`` (a sharded model's
+    activations) goes through a batched product instead: the product's
+    flattening of (B, S) into rows is refused by DTensor's view rules when S
+    is sharded (sequence parallelism), in PyTorch 2.11 at least."""
+    if x.dim() == 3 and is_distributed(x):
+        return torch.bmm(x, w.unsqueeze(0).expand(x.shape[0], *w.shape))
+    return x @ w
+
+
 def mlp(x, wi_gate, wi_up, wo):
-    h = F.silu(x @ wi_gate) * (x @ wi_up)
-    return h @ wo
+    h = F.silu(linear(x, wi_gate)) * linear(x, wi_up)
+    return linear(h, wo)
 
 
 class MLP(nn.Module):

@@ -5,8 +5,17 @@
 ``"cuda"`` (the kernel K4) is the counterpart of the reference's
 ``"pallas"``; ``remat`` and ``loss_chunks``, which the training loss reads;
 and the sharding and scan fields (``sp``, ``fsdp``, ``grad_rs``,
-``unroll``) that ``core.jconfig.build_flags`` sets, of which only
-``launch.build`` reads ``sp``, for its collective formula.
+``unroll``) that ``core.jconfig.build_flags`` sets: ``launch.build`` reads
+``sp``, ``fsdp`` and ``grad_rs`` for its per-device bytes and collective
+formulas, ``train.train_step`` reads ``grad_rs``; ``unroll`` has no
+counterpart (the layers are a Python loop).
+
+With a sharding policy (``parallel.sharding``) the parameters are DTensors
+placed by the reference's rules and the inputs DTensors placed by
+``batch_spec``/``cache_spec``; the embedded input and the logits are moved
+to the reference's placements (its ``model.py:72-81``), and the layers
+constrain the residual stream.  Plain tensors created inside (positions,
+masks) count as replicated.
 
 Frontends are stubs, as in the reference: a vision arch takes precomputed
 patch embeddings (``image_embeds``, (B, F, d)) that go through one (d, d)
@@ -27,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import Embedding, LMHead, RMSNorm, normal_param
+from repro_torch.models.layers import Embedding, LMHead, RMSNorm, linear, normal_param
+from repro_torch.parallel.sharding import is_distributed, maybe_context
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -67,11 +77,16 @@ class Model(nn.Module):
     ``seed`` the weights are drawn from a ``torch.Generator`` on that device
     (normal at std 0.02, norm scales at one); with ``seed=None``, or on the
     ``meta`` device, they are left empty for ``load_state_dict`` (for example
-    from ``models.convert.params_from_jax``).
+    from ``models.convert.params_from_jax``).  With a ``policy`` the weights
+    (equal on every rank: drawn from the same seed) are then distributed by
+    it (``ShardingPolicy.param_shardings``, which can also be called later,
+    after a ``load_state_dict``).  A policy over a shape-only mesh (the
+    builds on ``meta``) distributes nothing; the MoE layers then take its
+    dispatch groups (``moe_groups``) on the one device.
     """
 
     def __init__(self, cfg: ArchConfig, flags: BuildFlags = BuildFlags(), *,
-                 device=None, seed: Optional[int] = 0):
+                 device=None, seed: Optional[int] = 0, policy=None):
         super().__init__()
         dev = resolve_device(device)
         gen = None
@@ -87,6 +102,9 @@ class Model(nn.Module):
         if cfg.frontend:
             self.frontend = Frontend(cfg.d_model, dtype, dev, gen)
         self.stack = transformer.Stack(cfg, dtype, dev, gen)
+        self.policy = policy
+        if policy is not None and policy.has_devices:
+            policy.param_shardings(self)
 
     @property
     def device(self) -> torch.device:
@@ -98,7 +116,7 @@ class Model(nn.Module):
     def _embeds(self, embeds):
         """Precomputed frontend embeddings, in the model dtype, projected."""
         e = torch.as_tensor(embeds, device=self.device).to(self.flags.tdtype)
-        return e @ self.frontend.proj
+        return linear(e, self.frontend.proj)
 
     # -- embedding of modality inputs -------------------------------------------
     def _embed_inputs(self, batch):
@@ -107,22 +125,50 @@ class Model(nn.Module):
         ``frame_embeds``, else the token embeddings."""
         frontend = self.cfg.frontend
         if frontend == "vision":
-            return torch.cat([self._embeds(batch["image_embeds"]),
-                              self.embed(self._tokens(batch["tokens"]))], dim=1)
-        if frontend == "audio":
-            return self._embeds(batch["frame_embeds"])
-        return self.embed(self._tokens(batch["tokens"]))
+            x = torch.cat([self._embeds(batch["image_embeds"]),
+                           self._token_embeds(batch["tokens"])], dim=1)
+        elif frontend == "audio":
+            x = self._embeds(batch["frame_embeds"])
+        else:
+            x = self._token_embeds(batch["tokens"])
+        if self.policy is not None:
+            x = self.policy.constrain_residual(x)
+        return x
+
+    def _token_embeds(self, tokens):
+        """The token embeddings; sharded token ids look their rows up on each
+        rank's rows with the table gathered (DTensor's own index rules fail
+        in the backward pass in PyTorch 2.11)."""
+        tokens = self._tokens(tokens)
+        if not is_distributed(tokens):
+            return self.embed(tokens)
+        pol = self.policy
+        split = pol.row_split(tokens.shape[0])
+        rows = pol.gathered(self.embed.table, split)[pol.local_rows(tokens, split)]
+        return pol.from_rows(rows, split, tokens)
 
     def _logits(self, hidden):
         h = self.final_norm(hidden, self.cfg.norm_eps)
         w = self.embed.table.T if self.cfg.tie_embeddings else self.head.w
-        return h @ w
+        logits = linear(h, w)
+        if self.policy is not None:
+            logits = self.policy.constrain_logits(logits)
+        return logits
 
     def _ce_sum(self, hidden, labels, mask):
         """Sum over the masked positions of the fp32 cross entropy."""
         logits = self._logits(hidden).float()
+        if is_distributed(logits):
+            # the gold logit's gather on each rank's rows, the vocab whole
+            # there (DTensor's gather rules fail on a sharded vocab)
+            pol = self.policy
+            split = pol.row_split(logits.shape[0])
+            gold = pol.from_rows(torch.gather(pol.local_rows(logits, split), -1,
+                                              pol.local_rows(labels, split)[..., None])[..., 0],
+                                 split, logits)
+        else:
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         lz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         return torch.sum((lz - gold) * mask)
 
     # -- train forward -----------------------------------------------------------
@@ -134,8 +180,13 @@ class Model(nn.Module):
         > 1 the sequence is cut into n chunks whose logits are formed one
         at a time (and, with gradients on, recomputed in the backward pass),
         which caps the logits' memory."""
+        with maybe_context(self.policy):
+            return self._loss(batch)
+
+    def _loss(self, batch):
         x = self._embed_inputs(batch)
-        hidden, aux, _ = self.stack.forward_full(x, self.flags, want_cache=False)
+        hidden, aux, _ = self.stack.forward_full(x, self.flags, want_cache=False,
+                                                 policy=self.policy)
         labels = self._tokens(batch["labels"])
         mask = labels >= 0
         labels = labels.clamp(min=0)
@@ -162,19 +213,23 @@ class Model(nn.Module):
         """batch {"tokens": (B, S)}, plus ``image_embeds`` (B, F, d) for a
         vision arch, or only ``frame_embeds`` (B, S, d) for an audio arch
         -> (last-position logits (B, V), caches)."""
-        x = self._embed_inputs(batch)
-        hidden, _, caches = self.stack.forward_full(x, self.flags, want_cache=True)
-        logits = self._logits(hidden[:, -1:, :])[:, 0]
+        with maybe_context(self.policy):
+            x = self._embed_inputs(batch)
+            hidden, _, caches = self.stack.forward_full(x, self.flags, want_cache=True,
+                                                        policy=self.policy)
+            logits = self._logits(hidden[:, -1:, :])[:, 0]
         return logits, caches
 
     def decode_step(self, tokens, caches, pos):
         """tokens: (B, 1); pos: int or (B,) tensor.  Returns (logits (B, V), caches).
 
-        The caches are updated in place and returned.
+        The caches are updated in place and returned.  Under a policy the
+        caches are ``ShardingPolicy.cache_shardings``'s DTensors.
         """
-        x = self.embed(self._tokens(tokens))
-        hidden, caches = self.stack.forward_decode(x, caches, pos)
-        return self._logits(hidden)[:, 0], caches
+        with maybe_context(self.policy):
+            x = self._token_embeds(tokens)
+            hidden, caches = self.stack.forward_decode(x, caches, pos, self.policy)
+            return self._logits(hidden)[:, 0], caches
 
     def reference_leaves(self):
         """[(parameter names, stacked?)] per leaf of the reference's param

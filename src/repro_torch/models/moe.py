@@ -3,7 +3,8 @@
 Top-k routing with the weights renormalised over the selected experts,
 per-expert capacity with over-capacity tokens dropped to a sentinel slot
 (they fall through the residual connection), optional shared experts, as
-the reference does with one dispatch group (g = 1: no sharding policy yet).
+the reference does: one dispatch group on one device, or under a sharding
+policy one group per data-parallel rank (``moe_ffn``).
 
 Routing goes through the gating kernel K5 (``kernels.topk_gating``): softmax
 over the experts, then the top k, with ties to the lower expert index as
@@ -27,6 +28,7 @@ from torch import nn
 
 from repro_torch.kernels.topk_gating import topk_gating
 from repro_torch.models.layers import MLP, RMSNorm, mlp, normal_param, rmsnorm
+from repro_torch.parallel.sharding import is_distributed
 
 
 class Experts(nn.Module):
@@ -73,20 +75,65 @@ def _rank_in_expert(flat_ids, e):
     return rank
 
 
-def switch_aux_loss(gate_logits, top_ids, e, k):
-    """E · Σ_e mean_t(softmax_e) · mean_t(selected_e) / k (Switch, fp32)."""
+def aux_stats(gate_logits, top_ids, e, k):
+    """The Switch loss's two means over the rows: (mean_t(softmax), mean_t(selected) / k)."""
     me = torch.softmax(gate_logits, dim=-1).mean(dim=0)
     ce = F.one_hot(top_ids, e).to(torch.float32).sum(dim=1).mean(dim=0) / k
+    return me, ce
+
+
+def switch_aux_loss(gate_logits, top_ids, e, k):
+    """E · Σ_e mean_t(softmax_e) · mean_t(selected_e) / k (Switch, fp32)."""
+    me, ce = aux_stats(gate_logits, top_ids, e, k)
     return e * torch.sum(me * ce)
 
 
-def moe_ffn(p: MoE, x, cfg, want_aux: bool = True):
+def moe_ffn(p: MoE, x, cfg, want_aux: bool = True, policy=None, grouped: bool = True):
     """x: (B, S, D) -> (out (B, S, D), aux loss | None): routed plus shared
-    experts, and the Switch loss when ``want_aux``."""
+    experts, and the Switch loss when ``want_aux``.
+
+    Under a sharding policy with DTensor inputs the dispatch is group-local
+    (the reference's ``moe.py:67-150``): g = ``policy.moe_groups(B)`` groups
+    of contiguous rows, one per data-parallel rank, each with its own
+    capacity; each rank runs the dispatch on its group's rows as plain
+    tensors (K5 included) with the expert weights gathered.  ``grouped=False``
+    (the decode step, as the reference's) keeps one group.  On plain
+    tensors under a policy (a build on ``meta`` with a shape-only mesh) the
+    g groups are dispatched on the one device."""
+    if policy is not None and is_distributed(x):
+        return _moe_sharded(p, x, cfg, want_aux, policy, grouped)
+    groups = policy.moe_groups(x.shape[0]) if (policy is not None and grouped) else 1
+    out, stats = moe_local(p, x, cfg, want_aux, groups)
+    return out, (None if stats is None else cfg.n_experts * torch.sum(stats[0] * stats[1]))
+
+
+def _moe_sharded(p, x, cfg, want_aux, policy, grouped):
+    split = grouped and policy.row_split(x.shape[0])
+    # local_rows is the reference's constrain_tokens_for_moe: rows over the data axes
+    out, stats = moe_local(policy.gathered_params(p, split), policy.local_rows(x, split),
+                           cfg, want_aux)
+    out = policy.constrain_residual(policy.from_rows(out, split, x))
+    if stats is None:
+        return out, None
+    # the means over every group's rows (equal-sized groups), then the product
+    me, ce = (policy.from_rows(m[None], split, x).mean(dim=0) for m in stats)
+    return out, cfg.n_experts * torch.sum(me * ce)
+
+
+def moe_local(p, x, cfg, want_aux: bool = True, groups: int = 1):
+    """The MoE FFN on plain tensors: x (B, S, D) -> (out, (me, ce) | None),
+    the Switch loss's means when ``want_aux``.  With ``groups`` = g the rows
+    form g equal groups of contiguous tokens, each dispatched within
+    itself at capacity ``expert_capacity(T / g)``, as the reference's
+    group-local dispatch on one device."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
-    c = expert_capacity(t, cfg)
+    g = groups
+    if t % g:
+        raise ValueError(f"{t} tokens do not split into {g} groups")
+    tl = t // g
+    c = expert_capacity(tl, cfg)
 
     h = rmsnorm(x, p.norm.scale, cfg.norm_eps)
     xt = h.reshape(t, d)
@@ -95,30 +142,41 @@ def moe_ffn(p: MoE, x, cfg, want_aux: bool = True):
     weights = top_p / top_p.sum(dim=-1, keepdim=True)
 
     top_ids = top_ids.long()
-    aux = switch_aux_loss(gate_logits, top_ids, e, k) if want_aux else None
-    rank = _rank_in_expert(top_ids.reshape(t * k), e).reshape(t, k)
+    stats = aux_stats(gate_logits, top_ids, e, k) if want_aux else None
+    # ranks within (group, expert): group i's experts are segments i·E .. i·E + E-1
+    gid = torch.arange(t, device=x.device) // tl
+    seg = top_ids + (gid * e)[:, None] if g > 1 else top_ids
+    rank = _rank_in_expert(seg.reshape(t * k), g * e).reshape(t, k)
     keep = rank < c
+    row = e * c + 1                                          # a group's rows, sentinel last
     slot = torch.where(keep, top_ids * c + rank, e * c)      # drops -> sentinel
+    if g > 1:
+        slot = slot + (gid * row)[:, None]
 
     # dispatch: each kept assignment owns its slot, so the reference's
     # scatter-add of the token is a copy.  Every assignment is copied, the
-    # dropped ones into the sentinel row e·c, which is then cut off: the
-    # shapes stay static (no boolean mask, so no device-to-host sync, and
-    # the build on the meta device can run it)
-    buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=x.device)
+    # dropped ones into their group's sentinel row e·c, which is then cut
+    # off: the shapes stay static (no boolean mask, so no device-to-host
+    # sync, and the build on the meta device can run it)
+    buf = torch.zeros((g * row, d), dtype=xt.dtype, device=x.device)
     buf.index_copy_(0, slot.reshape(t * k),
                     xt[:, None, :].expand(t, k, d).reshape(t * k, d))
-    buf = buf[:e * c].reshape(e, c, d)
+    buf = buf.reshape(g, row, d)[:, :e * c].reshape(g, e, c, d)
+    if g > 1:
+        buf = buf.transpose(0, 1).reshape(e, g * c, d)
+    else:
+        buf = buf.reshape(e, c, d)
 
     we = p.experts
     y = torch.bmm(F.silu(torch.bmm(buf, we.wi_gate)) * torch.bmm(buf, we.wi_up), we.wo)
 
-    # combine: each token pulls its k expert outputs (the sentinel row is 0)
-    y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))], dim=0)
+    # combine: each token pulls its k expert outputs (the sentinel rows are 0)
+    y = y.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d) if g > 1 else y
+    y_flat = torch.cat([y.reshape(g, e * c, d), y.new_zeros((g, 1, d))], dim=1).reshape(g * row, d)
     out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for i in range(k):
         out = out + y_flat[slot[:, i]] * (weights[:, i, None] * keep[:, i, None]).to(x.dtype)
     out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + mlp(h, p.shared.wi_gate, p.shared.wi_up, p.shared.wo)
-    return out, aux
+    return out, stats

@@ -23,6 +23,13 @@ products (``aten.mm``/``addmm``, products without batch dimensions), the
 counterpart of ``dots_with_no_batch_dims_saveable``.  The recompute runs
 the same operations on the same inputs, so the three modes give the same
 losses and gradients bit for bit on a deterministic device.
+
+Under a sharding policy (``parallel.sharding``; the parameters and inputs
+are DTensors) the residual stream is moved to the reference's placements
+after each mixer and each FFN (``constrain_residual``, the reference's
+``transformer.py:64-73``).  The Mamba-2 mixer, whose work is per sequence,
+runs on each rank's rows with its weights gathered (``_mamba_rows``), so
+its plain path or K4 sees plain local tensors.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.parallel.sharding import is_distributed, maybe_context
 
 
 class DenseFFN(nn.Module):
@@ -66,33 +74,58 @@ class Layer(nn.Module):
         elif spec.ffn == "moe":
             self.ffn = moe.MoE(cfg, dtype, device, generator)
 
-    def _ffn(self, x, want_aux=False):
+    def _ffn(self, x, want_aux=False, policy=None, grouped=True):
         """(x + ffn(x), the MoE's aux loss or None)."""
         if self.ffn_kind == "dense":
-            return x + self.ffn(x, self.cfg.norm_eps), None
-        if self.ffn_kind == "moe":
-            y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux)
-            return x + y, aux
-        return x, None
+            x = x + self.ffn(x, self.cfg.norm_eps)
+            aux = None
+        elif self.ffn_kind == "moe":
+            y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux, policy=policy,
+                                 grouped=grouped)
+            x = x + y
+        else:
+            return x, None
+        if policy is not None:
+            x = policy.constrain_residual(x)
+        return x, aux
 
-    def full(self, x, flags, want_aux=False):
+    def full(self, x, flags, want_aux=False, policy=None):
         """Full-seq layer.  Returns (x, aux | None, cache)."""
         if self.is_attn:
             h, cache = attention.full_attention(
                 self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
-                attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv)
+                attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv,
+                policy=policy)
+        elif policy is not None and is_distributed(x):
+            h, cache = _mamba_rows(policy, self.mixer, x, self.cfg, flags.ssd_impl)
         else:
             h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
-        x, aux = self._ffn(x + h, want_aux)
+        x = x + h
+        if policy is not None:
+            x = policy.constrain_residual(x)
+        x, aux = self._ffn(x, want_aux, policy)
         return x, aux, cache
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, policy=None):
         if self.is_attn:
             h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
                                                   window=self.window)
+        elif is_distributed(x):
+            raise NotImplementedError("a Mamba-2 decode step under a sharding policy")
         else:
             h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
-        return self._ffn(x + h)[0], cache
+        # the reference's decode MoE takes one dispatch group (policy None there)
+        return self._ffn(x + h, policy=policy, grouped=False)[0], cache
+
+
+def _mamba_rows(policy, mixer, x, cfg, impl):
+    """The Mamba-2 mixer on this rank's rows of the DTensor ``x`` (split
+    over the data axes when they divide the batch), weights gathered."""
+    split = policy.row_split(x.shape[0])
+    h, cache = mamba2.mamba_block(policy.gathered_params(mixer, split),
+                                  policy.local_rows(x, split), cfg, impl=impl)
+    return (policy.from_rows(h, split, x),
+            {k: policy.from_rows(t, split, x) for k, t in cache.items()})
 
 
 def _group_layout(cfg: ArchConfig):
@@ -142,8 +175,10 @@ def _save_products(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _train_layer(layer, flags, x):
-    x, aux, _ = layer.full(x, flags, want_aux=True)
+def _train_layer(layer, flags, x, policy=None):
+    # under the policy's context also when remat recomputes it in a backward pass
+    with maybe_context(policy):
+        x, aux, _ = layer.full(x, flags, want_aux=True, policy=policy)
     return x, aux
 
 
@@ -156,7 +191,7 @@ class Stack(nn.Module):
         self.layers = nn.ModuleList(
             Layer(spec, cfg, dtype, device, generator) for *_, spec in self.layout)
 
-    def forward_full(self, x, flags, want_cache: bool):
+    def forward_full(self, x, flags, want_cache: bool, policy=None):
         """x: (B,S,D) embedded input -> (hidden (B,S,D), aux_total, caches | None).
 
         With ``want_cache`` (prefill) the layers return their caches and no
@@ -167,7 +202,7 @@ class Stack(nn.Module):
         if want_cache:
             caches = []
             for layer in self.layers:
-                x, _, c = layer.full(x, flags)
+                x, _, c = layer.full(x, flags, policy=policy)
                 caches.append(c)
             return x, None, caches
         if flags.remat not in ("none", "selective", "full"):
@@ -180,18 +215,18 @@ class Stack(nn.Module):
         aux_total = x.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
             if remat:
-                x, aux = checkpoint(_train_layer, layer, flags, x, use_reentrant=False,
-                                    **kwargs)
+                x, aux = checkpoint(_train_layer, layer, flags, x, policy,
+                                    use_reentrant=False, **kwargs)
             else:
-                x, aux = _train_layer(layer, flags, x)
+                x, aux = _train_layer(layer, flags, x, policy)
             if aux is not None:
                 aux_total = aux_total + aux
         return x, aux_total, None
 
-    def forward_decode(self, x, caches, pos):
+    def forward_decode(self, x, caches, pos, policy=None):
         """x: (B,1,D) -> (hidden (B,1,D), caches), caches updated in place."""
         for layer, c in zip(self.layers, caches):
-            x, _ = layer.decode(x, c, pos)
+            x, _ = layer.decode(x, c, pos, policy)
         return x, caches
 
 

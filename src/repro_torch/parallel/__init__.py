@@ -1,2 +1,2 @@
-"""Parallelism (port of ``repro/parallel``).  So far the gradient compression;
-sharding and the pipeline come with ROADMAP slice 7b."""
+"""Parallelism (port of ``repro/parallel``): the sharding policy, gradient
+compression (``ef_compress_tree``, ``psum_int8``) and the GPipe pipeline."""

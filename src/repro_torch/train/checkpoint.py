@@ -15,6 +15,11 @@ on the device and in the dtype of the template's leaf; given the ``cfg`` of
 the arch, it also reads a checkpoint the reference wrote (keys such as
 ``params/embed/table``, scanned layer groups stacked), through
 ``models.convert.train_state_from_jax``.
+
+A sharded state (DTensor leaves, ``parallel.sharding``) is written as the
+same full arrays: every rank takes part in gathering each leaf, and rank 0
+alone writes (and prunes).  ``restore`` places each leaf in its template
+leaf's placements, every rank slicing its own share of the full array.
 """
 from __future__ import annotations
 
@@ -40,8 +45,23 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().to("cpu", copy=True)
+    t = t.detach()
+    if _is_dt(t):
+        t = t.full_tensor()
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy()
     return t.numpy()
@@ -61,6 +81,11 @@ def _like(template: Any, values: Dict[str, torch.Tensor], prefix: str = "") -> A
             out[key] = _like(leaf, values, name + "/")
         elif name not in values:
             raise KeyError(f"checkpoint missing leaf {name!r}")
+        elif _is_dt(leaf):
+            from torch.distributed.tensor import distribute_tensor
+
+            out[key] = distribute_tensor(values[name].to(device=leaf.device, dtype=leaf.dtype),
+                                         leaf.device_mesh, leaf.placements, src_data_rank=None)
         else:
             out[key] = values[name].to(device=leaf.device, dtype=leaf.dtype)
     return out
@@ -78,7 +103,9 @@ class CheckpointManager:
     def save(self, step: int, state: Any, block: bool = False) -> None:
         # snapshot to host memory synchronously, write async
         flat = {k: (_to_numpy(v), "bfloat16" if v.dtype == torch.bfloat16 else None)
-                for k, v in _flatten(state).items()}
+                for k, v in sorted(_flatten(state).items())}
+        if _rank() != 0:
+            return
         self.wait()
         if self.async_save and not block:
             self._thread = threading.Thread(

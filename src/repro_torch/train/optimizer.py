@@ -16,6 +16,12 @@ donates its buffers to the same end); it returns ``(params, state)``.  The
 learning rate and bias corrections are fp32 scalars on the host, as the
 reference's are fp32.
 
+The parameters may be DTensors (``parallel.sharding``): the slots are made
+with the parameters' placements (Adafactor's factored moments with the
+placements of the dimensions they keep), each gradient is moved to its
+parameter's placements, every new value to its slot's before it is
+written, and the global norm's per-leaf sums are reduced over the ranks.
+
 ``leaves`` says which parameters the reference holds as one leaf: its
 ``scan`` section stacks each weight of the repeating layer group along a
 new leading axis.  That matters twice, and the port follows the reference
@@ -50,8 +56,25 @@ def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0
     return lr
 
 
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _full(t):
+    return t.full_tensor() if _is_dt(t) else t
+
+
+def _placed(t, like):
+    """``t`` in the placements of ``like`` (both DTensors), else as it is."""
+    if _is_dt(like) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()]
+    leaves = [_full(torch.sum(torch.square(x.to(torch.float32)))) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -74,7 +97,22 @@ class Optimizer:
 
 
 def _zeros32(p):
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
+def _zeros32_without(p, dim):
+    """fp32 zeros shaped like ``p`` without dimension ``dim`` (a negative
+    index); a DTensor keeps the placements of the dimensions left."""
+    shape = p.shape[:dim] + (p.shape[dim + 1:] if dim != -1 else ())
+    if not _is_dt(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    d = dim % p.dim()
+    pl = [Replicate() if isinstance(x, Shard) and x.dim == d else
+          Shard(x.dim - 1) if isinstance(x, Shard) and x.dim > d else x for x in p.placements]
+    return distribute_tensor(torch.zeros(shape, dtype=torch.float32, device=p.device),
+                             p.device_mesh, pl, src_data_rank=None)
 
 
 def _leaves(params, leaves):
@@ -103,15 +141,15 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         for names, stacked in _leaves(params, leaves):
             for k in names:
                 p = params[k]
-                g = grads[k].to(torch.float32)
+                g = _placed(grads[k].to(torch.float32), p)
                 m = b1 * state["m"][k] + (1 - b1) * g
                 v = b2 * state["v"][k] + (1 - b2) * g * g
                 delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
                 if _ndim(p, stacked) >= 2:  # decoupled weight decay on matrices only
                     delta = delta + weight_decay * p.to(torch.float32)
-                p.copy_(p.to(torch.float32) - lr_t * delta)
-                state["m"][k].copy_(m)
-                state["v"][k].copy_(v)
+                p.copy_(_placed(p.to(torch.float32) - lr_t * delta, p))
+                state["m"][k].copy_(_placed(m, p))
+                state["v"][k].copy_(_placed(v, p))
         return params, state
 
     return Optimizer(init, update)
@@ -127,9 +165,7 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
     def init(params):
         def one(p):
             if _factored(p):
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
-                                          device=p.device)}
+                return {"vr": _zeros32_without(p, -1), "vc": _zeros32_without(p, -2)}
             return {"v": _zeros32(p)}
         return {"slots": {k: one(p) for k, p in params.items()}}
 
@@ -142,12 +178,12 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
             denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
             u = g * torch.rsqrt(vr[..., None] / denom[..., None])
             u = u * torch.rsqrt(vc[..., None, :])
-            slot["vr"].copy_(vr)
-            slot["vc"].copy_(vc)
+            slot["vr"].copy_(_placed(vr, slot["vr"]))
+            slot["vc"].copy_(_placed(vc, slot["vc"]))
         else:
             v = decay * slot["v"] + (1 - decay) * g2
             u = g * torch.rsqrt(v)
-            slot["v"].copy_(v)
+            slot["v"].copy_(_placed(v, slot["v"]))
         return u
 
     @torch.no_grad()
@@ -162,8 +198,8 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
                 raise NotImplementedError(
                     "a stack of >= 128 vectors of >= 128 entries, which the reference "
                     "factors across its layers")
-            us = [_one(grads[k].to(torch.float32), state["slots"][k], _factored(params[k]),
-                       decay) for k in names]
+            us = [_one(_placed(grads[k].to(torch.float32), params[k]), state["slots"][k],
+                       _factored(params[k]), decay) for k in names]
             # the update clipping's RMS is over the reference's whole leaf
             rms = torch.sqrt(sum(torch.sum(u * u) for u in us) / sum(u.numel() for u in us))
             for k, u in zip(names, us):
@@ -172,7 +208,7 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
                 newp = p.to(torch.float32) - lr_t * u
                 if weight_decay and _ndim(p, stacked) >= 2:
                     newp = newp - lr_t * weight_decay * p.to(torch.float32)
-                p.copy_(newp)
+                p.copy_(_placed(newp, p))
         return params, state
 
     return Optimizer(init, update)

@@ -13,6 +13,13 @@ The train state is a dict of tensors ``{"params", "opt", "step", ["ef"]}``:
 so the model computes with the state's weights; the step writes the new
 parameters and optimizer slots into them in place.  ``step`` is an int32
 scalar on the host.
+
+Under a sharding policy (the model's, or ``policy``) the parameters, and
+so the gradients, are DTensors.  A gradient comes out of the backward pass
+as a pending sum over the ranks; with ``flags.grad_rs`` it is reduced
+straight into its parameter's placements (a reduce-scatter, the
+reference's ``train_step.py:65-70``), otherwise it is all-reduced and the
+optimizer takes its parameter's slice.  The metrics are plain tensors.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.parallel.sharding import is_distributed, maybe_context
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
 
@@ -31,14 +39,35 @@ class TrainStepConfig:
     grad_compress: bool = False
 
 
+def _plain(t):
+    t = t.detach()
+    return t.full_tensor() if is_distributed(t) else t
+
+
 def _grads_of(model, params, batch):
     loss, metrics = model.loss_fn(batch)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                 materialize_grads=True)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(params, grads))
+    return _plain(loss), {k: _plain(v) for k, v in metrics.items()}, dict(zip(params, grads))
 
 
-def make_train_step(model, optimizer: Optimizer, cfg: TrainStepConfig = TrainStepConfig()):
+def _reduce_grads(grads, params, policy, into_shards: bool):
+    """Each pending gradient sum reduced: into its parameter's placements
+    (``into_shards``, a reduce-scatter) or whole on every rank."""
+    from torch.distributed.tensor import Replicate
+
+    out = {}
+    for k, g in grads.items():
+        if is_distributed(g):
+            p = params[k]
+            want = p.placements if into_shards else [Replicate()] * p.device_mesh.ndim
+            g = g.redistribute(p.device_mesh, want)
+        out[k] = g
+    return out
+
+
+def make_train_step(model, optimizer: Optimizer, cfg: TrainStepConfig = TrainStepConfig(),
+                    policy=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params", "opt", "step", ["ef"]}; ``batch`` holds tensors on the
@@ -47,8 +76,13 @@ def make_train_step(model, optimizer: Optimizer, cfg: TrainStepConfig = TrainSte
     """
 
     leaves = model.reference_leaves()
+    policy = policy if policy is not None else getattr(model, "policy", None)
 
     def train_step(state, batch):
+        with maybe_context(policy):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if cfg.microbatch > 1:
             n = cfg.microbatch
@@ -67,6 +101,8 @@ def make_train_step(model, optimizer: Optimizer, cfg: TrainStepConfig = TrainSte
             metrics: Dict[str, Any] = {}
         else:
             loss, metrics, grads = _grads_of(model, params, batch)
+        if policy is not None and policy.has_devices:
+            grads = _reduce_grads(grads, params, policy, model.flags.grad_rs)
 
         new_state = {k: v for k, v in state.items() if k != "ef"}
         if cfg.grad_compress:

@@ -474,3 +474,55 @@ def test_snapshot_is_plain_host_data(algo, gp_mode, tmp_path):
         snap = _HostDataOnly(io.BytesIO(f.read())).load()
     assert _tensors_in(snap) == 0
     assert snap["search_state"]["attrs"]["_gp_state"]["kind"] == gp_mode
+
+
+# ---------------------------------------------------------------------------
+# elastic membership: a client joins mid-sweep, another drains and leaves
+# ---------------------------------------------------------------------------
+
+
+def test_elastic_join_and_drain_end_to_end():
+    """The port's counterpart of ``tests/test_durable.py``'s test of the same
+    name: a client HELLOs in mid-sweep and serves dispatches; another
+    GOODBYEs (drain) and leaves without losing a config.  The join (at the
+    10th result) and the drain (at the 25th) are driven by the record count
+    on the host's own thread, inside ``ResultStore.add``, so the joiner
+    finds 50 configs still to come however fast the builds run."""
+    core = port_core
+    space, jc, build = _toy(core, PortArtifact)
+    pair = core.transport.LoopbackPair(2)
+    clients = {i: core.JClient(jc, build, transport=pair.client(i), client_id=i)
+               for i in range(2)}
+    threads = [threading.Thread(target=c.serve, kwargs=dict(poll_s=0.005), daemon=True)
+               for c in clients.values()]
+
+    def join():
+        pair.add_client(2)                   # the mailbox before serve (loopback)
+        clients[2] = core.JClient(jc, build, transport=pair.client(2), client_id=2)
+        threads.append(threading.Thread(target=clients[2].serve,
+                                        kwargs=dict(poll_s=0.005), daemon=True))
+        threads[-1].start()
+        clients[2].hello()
+
+    events = {10: join, 25: lambda: clients[1].goodbye(drain=True)}
+
+    class Store(core.ResultStore):
+        def add(self, rec):
+            super().add(rec)
+            events.pop(len(self.records), lambda: None)()
+
+    for t in threads:
+        t.start()
+    store = Store()
+    host = core.JHost(pair.host(), store, timeout_s=60.0, poll_s=0.002)
+    host.explore(core.RandomSearch(space, seed=0), "toy", "gen", 60, batch_size=5,
+                 dispatch="pipelined")
+    host.stop_clients()
+    assert not events
+    ids = [r.config_id for r in store.records]
+    assert len(ids) == len(set(ids)) == 60
+    assert all(r.status == "ok" for r in store.records)
+    served = [r.client_id for r in store.records]
+    assert 2 in served                       # the joiner did real work
+    stats = host.scheduler.stats()
+    assert stats["clients_joined"] >= 1 and stats["clients_left"] >= 1

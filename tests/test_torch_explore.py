@@ -304,10 +304,35 @@ def test_crash_exits_42_and_resumes(tmp_path):
 
 
 def test_train_shape_raises_in_the_build(tmp_path):
+    """The train cells are counted now (``launch.build``): the reduced
+    train_4k sweep of the paper's command runs end to end, every record ok,
+    each build a counted train step with its optimizer."""
     res = explore.run(["--workload", "llama2-7b", "--reduced", "--shape", "train_4k",
-                       "--samples", "2", "--clients", "1", "--chips", "256",
+                       "--algorithm", "bayesopt", "--gp", "incremental",
+                       "--samples", "14", "--clients", "2", "--chips", "8",
                        "--out", str(tmp_path / "x.csv")])
-    assert [r.status for r in res.store.records] == ["failed", "failed"]
+    assert len(res.store.records) == 14
+    assert all(r.status == "ok" for r in res.store.records)
+    assert res.timings["builds"] >= 1
+    for r in res.store.records:
+        assert r.metrics["time_s"] > 0 and r.metrics["power_w"] > 0
+
+
+@pytest.mark.parametrize("algo", ["random", "bayesopt"])
+def test_train_4k_csv_equals_the_reference(algo, ref_explore, stub_port, monkeypatch,
+                                           tmp_path):
+    """The train_4k space (``tpu_pod_space`` at 8 chips: dp, fsdp,
+    microbatch, remat, sp, grad_rs, loss_chunks, the attention tiles) on the
+    shared stub build: the reference's CSV."""
+    argv = BASE + ["--shape", "train_4k", "--chips", "8", "--algorithm", algo,
+                   "--samples", "20", "--clients", "1", "--gp", "incremental"]
+    ours, ref = str(tmp_path / "port.csv"), str(tmp_path / "ref.csv")
+    explore.main(argv + ["--out", ours])
+    _run_ref(ref_explore, argv + ["--out", ref], monkeypatch)
+    assert _header(ours) == _header(ref)
+    assert "knob.grad_rs" in _header(ours) and "knob.remat" in _header(ours)
+    got, want = _rows(ours), _rows(ref)
+    assert sorted(got) == list(range(20)) and got == want
 
 
 def test_explore_defaults_to_the_card(monkeypatch, tmp_path):

@@ -58,6 +58,9 @@ store = explore.main(["--workload", "llama2-7b", "--reduced", "--samples", "8",
                       "--gp", "incremental", "--algorithm", "bayesopt", "--clients", "2",
                       "--gen-tokens", "8", "--out", sys.argv[1]])
 assert len(store.ok_records()) == 8, [r.status for r in store.records]
+from repro_torch.launch import dryrun
+assert dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k,decode_32k", "--mesh",
+                    "single", "--reduced", "--out", sys.argv[1] + ".jsonl"]) == 0
 import json, os
 from repro_torch.launch import serve_explore
 tmp = os.path.dirname(sys.argv[1])

@@ -104,7 +104,8 @@ def test_decode_attention_matches_reference(pos, window):
     _close(gcache["v"], wcache["v"])
 
 
-@pytest.mark.parametrize("name", ["llama2-7b", "tinyllama-1.1b", "gemma3-27b"])
+@pytest.mark.parametrize("name", ["llama2-7b", "tinyllama-1.1b", "gemma3-27b",
+                                  "llama4-maverick-400b-a17b", "glm4-9b", "yi-9b"])
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 def test_prefill_and_decode_match_reference(name, impl):
     jm, params, tm = _pair(name, impl, seed=1)

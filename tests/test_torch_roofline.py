@@ -34,6 +34,7 @@ from repro_torch.core import jconfig, jmeasure
 from repro_torch.core.space import tpu_pod_space
 from repro_torch.launch import build
 from repro_torch.launch.explore import generation_space
+from repro_torch.launch.explore import make_build_fn as generation_build_fn
 from repro_torch.models import moe
 from repro_torch.models.model import BuildFlags
 from repro_torch.roofline import analysis, hw, traffic
@@ -273,9 +274,142 @@ def test_cost_mode_counts_what_flop_counter_mode_counts():
     assert mode.flops == fc.get_total_flops() > 0
 
 
-def test_train_shapes_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        build.build_cell(reduced(get_arch("llama2-7b")), ShapeConfig("t", "train", 8, 2), 1, 1)
+def train_flops(arch, s, b, dp, remat):
+    """One train step's matrix products in the port's plain paths at the
+    reference's MoE groups (g = dp when dp divides the batch): the forward
+    (the head over every position), its gradients (two products per
+    product: the inputs' and the weights'), and remat's recompute of each
+    layer's products inside the backward pass: ``full`` all of them,
+    ``selective`` those it does not keep (the batched ones, ``aten.bmm``:
+    attention scores and values, the experts).  The recompute (a
+    non-reentrant checkpoint) stops once the tensors the backward pass saved
+    are back, so a dense layer's last product, the FFN's ``wo``, whose
+    output the backward does not need, is not run again; a MoE layer ends
+    with its aux loss's product, which needs the recompute to run to the
+    end."""
+    d, v, t = arch.d_model, arch.vocab_size, b * s
+    g = dp if b % dp == 0 and dp > 1 else 1
+    mm = bmm = last = 0
+    for spec in arch.layer_specs():
+        h, hkv, dh = arch.n_heads, arch.n_kv_heads, arch.d_head
+        mm += 2 * t * d * (h + 2 * hkv) * dh + 2 * t * h * dh * d
+        bmm += 2 * 2 * b * h * s * s * dh
+        if spec.ffn == "dense":
+            mm += 6 * t * d * (arch.d_ff or arch.moe_d_ff)
+            last += 2 * t * d * (arch.d_ff or arch.moe_d_ff)
+        elif spec.ffn == "moe":
+            e, fe = arch.n_experts, arch.moe_d_ff
+            c = moe.expert_capacity(t // g, arch)
+            mm += 2 * t * d * e + 6 * t * d * arch.n_shared_experts * fe
+            bmm += 6 * e * g * c * d * fe
+    head = 2 * t * d * v
+    recompute = {"none": 0, "selective": bmm, "full": mm - last + bmm}[remat]
+    return 3 * (mm + bmm + head) + recompute
+
+
+TRAIN = ShapeConfig("train_4k", "train", 4096, 256)
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-moe-16b"])
+def test_full_width_train_cell_on_meta(arch, built_models):
+    """train_4k at full width at dp = 4, tp = 2: nothing allocated off meta,
+    the FLOPs of forward, backward and selective remat's recompute equal the
+    analytic count, AdamW (under 100e9 parameters) named in the meta."""
+    cfg = get_arch(arch)
+    cell = build.build_cell(cfg, TRAIN, 4, 2, BuildFlags())
+    assert len(built_models) == 1
+    for t in list(built_models[0].parameters()) + list(built_models[0].buffers()):
+        assert t.device.type == "meta"
+    art = cell.artifact
+    assert cell.kind == "train" and cell.meta["optimizer"] == "adamw"
+    want = train_flops(cfg, 4096, 256, 4, "selective") / 8
+    assert art.flops_per_device == pytest.approx(want, rel=1e-12, abs=0)
+    assert art.bytes_per_device > 0 and art.temp_bytes > 0
+    assert art.output_bytes < art.arg_bytes
+
+
+@pytest.mark.parametrize("remat", ["none", "selective", "full"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("dp", [1, 2])
+def test_train_cell_flops_per_remat(arch, remat, dp):
+    cfg = reduced(get_arch(arch))
+    cell = build.build_cell(cfg, ShapeConfig("t", "train", 16, 4), dp, 1,
+                            BuildFlags(remat=remat))
+    want = train_flops(cfg, 16, 4, dp, remat) / dp
+    assert cell.artifact.flops_per_device == pytest.approx(want, rel=1e-12, abs=0)
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("grad_rs", [False, True])
+@pytest.mark.parametrize("sp", [False, True])
+def test_train_cell_state_bytes_and_collectives_hand_count(fsdp, grad_rs, sp):
+    """Reduced llama (2 layers, bf16) at dp = 2, tp = 2, batch 4 × 16: the
+    state per device from the reference's specs, and the wire bytes of the
+    docstring's formulas, counted here leaf by leaf."""
+    cfg = reduced(get_arch("llama2-7b"))
+    flags = BuildFlags(fsdp=fsdp, grad_rs=grad_rs, sp=sp, remat="full")
+    art = build.build_cell(cfg, ShapeConfig("t", "train", 16, 4), 2, 2, flags).artifact
+    policy = build.mesh_policy(2, 2, flags)
+    model = build.Model(cfg, flags, device="meta", seed=None)
+    state, gather, rs, ar = 4.0, 0.0, 0.0, 0.0
+    for name, spec in policy.param_specs(model).items():
+        p = dict(model.named_parameters())[name]
+        axes = {a for e in spec if e for a in ((e,) if isinstance(e, str) else e)}
+        n = p.numel() * 2
+        state += (n + 8 * p.numel()) / ((2 if "data" in axes else 1) * (2 if "model" in axes else 1))
+        pm = n / (2 if "model" in axes else 1)
+        if "data" in axes:
+            gather += 2 * pm / 2
+            rs, ar = (rs + pm / 2, ar) if grad_rs else (rs, ar + pm)
+        else:
+            ar += pm
+    assert ("data" in str(policy.param_specs(model))) == fsdp
+    x = 4 * 16 / 2 * 64 * 2                    # tokens / dp × d_model × bf16
+    tp_red = 3 * 4 * x / 2                     # 3 passes (remat) × 4 reductions
+    ce = 2 * 2 * (4 * 16 / 2) * 4 / 2
+    if sp:
+        gather, rs = gather + tp_red, rs + tp_red
+    else:
+        ar += 2 * tp_red
+    ar += ce
+    want = {k: v for k, v in (("all-gather", gather), ("reduce-scatter", rs),
+                              ("all-reduce", ar)) if v}
+    assert art.collectives == pytest.approx(want, rel=1e-12)
+    assert art.output_bytes == int(state)
+    assert art.arg_bytes == int(state + 2 * 4 * 16 * 8 / 2)      # tokens, labels: int64 / dp
+
+
+def test_pick_optimizer_rule():
+    assert build.pick_optimizer(get_arch("llama4-maverick-400b-a17b"))[1] == "adafactor"
+    assert build.pick_optimizer(get_arch("llama2-7b"))[1] == "adamw"
+    assert build.pick_optimizer(get_arch("llama2-7b"), "adafactor")[1] == "adafactor"
+
+
+def test_explore_train_build_passes_the_optimizer_to_the_hbm_estimate():
+    """llama4-maverick-400b-a17b at train_4k on 8 chips: the build picks
+    Adafactor, and the HBM estimate is the reference's with Adafactor."""
+    import types
+
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro_torch.configs import SHAPES
+    from repro_torch.core.jconfig import JConfig, TestConfig
+
+    space = tpu_pod_space(get_arch("llama4-maverick-400b-a17b"), SHAPES["train_4k"], n_chips=8)
+    jc = JConfig(space, n_chips=8)
+    knobs = {k.name: k.values[0] for k in space.knobs}
+    args = types.SimpleNamespace(reduced=False, prompt_len=64, gen_tokens=8)
+    art, extra = generation_build_fn(args, jc)(
+        TestConfig(config_id=0, arch="llama4-maverick-400b-a17b", shape="train_4k", knobs=knobs))
+    dp, tp = jc.mesh_factors(knobs)
+    flags = jc.build_flags(knobs)
+    ref_flags = RefFlags(**{f: getattr(flags, f) for f in RefFlags.__dataclass_fields__})
+    want = ref_traffic.analytic_hbm_bytes_per_device(
+        ref_get_arch("llama4-maverick-400b-a17b"), REF_SHAPES["train_4k"], ref_flags, 8, dp, tp,
+        optimizer="adafactor")
+    adamw = ref_traffic.analytic_hbm_bytes_per_device(
+        ref_get_arch("llama4-maverick-400b-a17b"), REF_SHAPES["train_4k"], ref_flags, 8, dp, tp)
+    assert art.hbm_est_per_device == want != adamw
+    assert extra == {}
 
 
 @pytest.mark.parametrize("sp", [False, True])

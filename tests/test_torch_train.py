@@ -364,7 +364,8 @@ def _port_train(name, tsc, opt_name="adamw", arch_name=None):
     ("tinyllama-1.1b", "adafactor", TrainStepConfig()),
     ("deepseek-moe-16b", "adamw", TrainStepConfig(grad_compress=True)),
     ("internvl2-2b", "adamw", TrainStepConfig(microbatch=2)),
-], ids=["adamw", "adafactor", "moe_compressed", "vision_microbatch"])
+    ("glm4-9b", "adamw", TrainStepConfig()),
+], ids=["adamw", "adafactor", "moe_compressed", "vision_microbatch", "glm4"])
 def test_train_steps_match_reference(name, opt_name, tsc):
     """5 steps: losses, grad norms and the parameters after them."""
     jm, jparams, _ = _pair(name, remat="selective")
