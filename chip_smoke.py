@@ -201,7 +201,11 @@ failed check and then prints no result):
    sharded model (loss, router gradients); ``psum_int8`` over the one-rank
    group bitwise equal to the local quantise and dequantise; a DTensor
    train state (reduced deepseek-moe-16b, for time) through a checkpoint
-   and back into its placements, bitwise.
+   and back into its placements, bitwise; a prefill of llama2-7b (full
+   width, 2 layers, fp32, batch 4 × 512) with ``attn_impl="flash"`` under
+   ``ShardingPolicy(mesh, sp=False)``: K3 launched on each rank's block
+   (count set to 0 just before, read just after, one per layer), the
+   logits held against the same model's unsharded flash prefill.
 
 Standard output ends with a ``kernels`` JSON line (K3's, K5's and the GP
 kernels' entries also carry ``launches_by_path``), the nvidia-smi line and
@@ -1893,6 +1897,8 @@ def phase_explore_train(tmp):
 # the policy and 5 without from the same seed.
 SHARDED_STEPS = 5
 SHARDED_LOSS_RTOL = 2e-4            # tests/test_sharding.py's tolerance
+SHARDED_PREFILL_LAYERS, SHARDED_PREFILL_BATCH, SHARDED_PREFILL_SEQ = 2, 4, 512
+SHARDED_PREFILL_RTOL = 1e-5         # fp32 logits, over max |logit|
 TRAIN_DEVICE, TRAIN_BACKEND = "cuda", "nccl"
 
 
@@ -2040,11 +2046,54 @@ def phase_train_sharded(seed, tmp):
              placements_kept=placed)
         if not (same_ck and placed):
             raise AssertionError("train_sharded: the DTensor checkpoint did not round-trip")
+        k3 = _sharded_flash_prefill(seed, mesh)
     finally:
         dist.destroy_process_group()
     emit("train_sharded", phase_seconds=time.perf_counter() - t_phase,
          nvidia_smi=nvidia_smi_line())
-    return {"topk_gating": launches}
+    return {"topk_gating": launches, "flash_attention": k3}
+
+
+def _sharded_flash_prefill(seed, mesh):
+    """K3 under a sharding policy with SP off (batch over data, heads over
+    model): the prefill's logits against the unsharded flash prefill of the
+    same weights; K3's launches on the sharded prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=SHARDED_PREFILL_LAYERS)
+    flags = BuildFlags(dtype="float32", attn_impl="flash", sp=False)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SHARDED_PREFILL_BATCH, SHARDED_PREFILL_SEQ))).to(TRAIN_DEVICE)
+    sync = torch.cuda.synchronize if TRAIN_DEVICE == "cuda" else (lambda: None)
+    with torch.no_grad():
+        want = Model(cfg, flags, device=TRAIN_DEVICE, seed=seed).prefill({"tokens": tokens})[0]
+        policy = ShardingPolicy(mesh, sp=False)
+        model = Model(cfg, flags, device=TRAIN_DEVICE, seed=seed, policy=policy)
+        placed = policy.batch_shardings({"tokens": tokens})
+        sync()
+        fa.flash_attention.launches = 0
+        got = model.prefill(placed)[0]
+        sync()
+        launches = fa.flash_attention.launches
+        # ---- end of the counted run
+        got = got.full_tensor()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = (launches == cfg.n_layers and err <= SHARDED_PREFILL_RTOL * scale
+          and bool(torch.isfinite(got).all()))
+    emit("train_sharded_flash_prefill", arch=cfg.name, n_layers=cfg.n_layers,
+         batch=SHARDED_PREFILL_BATCH, seq=SHARDED_PREFILL_SEQ, k3_launches=launches,
+         logits_max_abs_err=err, logits_max_abs=scale, rtol=SHARDED_PREFILL_RTOL, ok=ok)
+    if not ok:
+        raise AssertionError("train_sharded: K3 on the sharded prefill did not launch once "
+                             "per layer or disagrees with the unsharded prefill")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3306,7 +3355,9 @@ def main(only=None):
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
     paths = {"flash_attention": {ARCH: launches["flash_attention"],
-                                 MOE_ARCH: moe_launches["flash_attention"], **frontend_launches},
+                                 MOE_ARCH: moe_launches["flash_attention"], **frontend_launches,
+                                 f"{ARCH} sharded prefill ({SHARDED_PREFILL_LAYERS} layers)":
+                                     sharded["flash_attention"]},
              "topk_gating": {f"{MOE_ARCH} serving": moe_launches["topk_gating"],
                              f"{MOE_ARCH} training ({MOE_TRAIN_LAYERS} layers)":
                                  train_launches["topk_gating"],

@@ -83,9 +83,21 @@ shape-only ``(data, model)`` mesh of dp × tp, ``flags.fsdp``):
     forward pass, once more for the input gradients in the backward pass,
     and once more with remat (``selective`` or ``full``), whose recompute
     runs the forward again: an all-reduce 2·X·(tp−1)/tp each, or with
-    ``sp`` an all-gather plus a reduce-scatter, X·(tp−1)/tp each; the
-    vocab-sharded cross entropy's max and sum, two fp32 all-reduces of
-    B·S/dp values.
+    ``sp`` an all-gather plus a reduce-scatter, X·(tp−1)/tp each.  A MoE
+    layer's reduction is its shared experts' (none without them); its
+    routed experts split over model (``ShardingPolicy.expert_block``, where
+    tp divides E) instead gather their outputs over model in the same
+    passes, Y·(tp−1)/tp each, Y = E·C·d_model bytes of its group's expert
+    buffer (C the capacity of B·S/g tokens, g = ``moe_groups``), and with
+    ``sp`` take their rows whole over model first, one more all-gather plus
+    reduce-scatter of X per pass;
+  - the vocabulary split over model (where tp divides V): the embedding
+    lookup's sum over the vocabulary shares, an all-reduce 2·X·(tp−1)/tp,
+    or with ``sp`` a reduce-scatter and, for its gradient, an all-gather,
+    X·(tp−1)/tp each; the cross entropy's max, sum of exponentials and gold
+    logit, three fp32 all-reduces of B·S/dp values.
+    Not counted: the head's input gather under ``sp`` and the recompute of
+    ``loss_chunks``.
 
 ``meta["one_device_bytes"]`` is what the whole cell holds on one device,
 unsharded: the weights (a train cell's whole state, updated in place), the
@@ -260,16 +272,33 @@ def train_collective_bytes(arch: ArchConfig, shape: ShapeConfig, flags: BuildFla
                 add("all-reduce", 2 * pm * f)
     if tp > 1:
         f = (tp - 1) / tp
-        tokens = shape.global_batch * shape.seq_len / dp
-        x = tokens * arch.d_model * flags.tdtype.itemsize
-        n_red = sum(1 + (s.ffn != "none") for s in arch.layer_specs())
+        b, itemsize = shape.global_batch, flags.tdtype.itemsize
+        tokens = b * shape.seq_len / dp
+        x = tokens * arch.d_model * itemsize
+        specs = arch.layer_specs()
+        n_moe = sum(s.ffn == "moe" for s in specs)
+        n_red = sum(1 + (s.ffn == "dense") for s in specs) + (
+            n_moe if arch.n_shared_experts else 0)
         passes = 2 + (flags.remat != "none")
         if flags.sp:
+            n_red += n_moe                  # the MoE's rows taken whole over model
             add("all-gather", passes * n_red * x * f)
             add("reduce-scatter", passes * n_red * x * f)
         else:
             add("all-reduce", passes * n_red * 2 * x * f)
-        add("all-reduce", 2 * 2 * tokens * 4 * f)
+        if n_moe and arch.n_experts % tp == 0:
+            from repro_torch.models.moe import expert_capacity
+
+            g = mesh_policy(dp, tp, flags).moe_groups(b)
+            y = arch.n_experts * expert_capacity(b * shape.seq_len // g, arch) * arch.d_model
+            add("all-gather", passes * n_moe * y * itemsize * f)
+        if arch.vocab_size % tp == 0:
+            if flags.sp:
+                add("reduce-scatter", x * f)
+                add("all-gather", x * f)
+            else:
+                add("all-reduce", 2 * x * f)
+            add("all-reduce", 3 * 2 * tokens * 4 * f)
     return out
 
 

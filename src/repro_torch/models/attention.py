@@ -15,9 +15,11 @@ the engine donates the old one); it returns the same dict.
 Under a sharding policy (``parallel.sharding``) the inputs are DTensors:
 ``full_attention`` moves q, k and v to the reference's placements
 (``constrain_attn_q``/``constrain_attn_kv``) and runs the plain grouped
-path on them (a hand-written kernel has no DTensor rule; training takes
-the plain path anyway); ``decode_attention`` writes the new token into
-the shard of a sequence-sharded cache that holds its position.
+path on them, or, with ``impl="flash"``, K3 on each rank's block where
+whole sequences and head groups sit on a rank (a hand-written kernel has
+no DTensor rule) and an error elsewhere; ``decode_attention`` writes the
+new token into the shard of a sequence-sharded cache that holds its
+position.
 """
 from __future__ import annotations
 
@@ -92,11 +94,9 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
         q = policy.constrain_attn_q(q)
         k = policy.constrain_attn_kv(k)
         v = policy.constrain_attn_kv(v)
-        if is_distributed(q):
-            impl = "xla"
     if impl == "flash":
-        o = flash_attention(q, k, v, causal=True, window=window,
-                            block_q=attn_block_q, block_kv=attn_block_kv)
+        kw = dict(causal=True, window=window, block_q=attn_block_q, block_kv=attn_block_kv)
+        o = _flash_blocks(q, k, v, **kw) if is_distributed(q) else flash_attention(q, k, v, **kw)
     elif impl == "xla":
         idx_q = torch.arange(s, device=x.device)[:, None]
         idx_k = torch.arange(s, device=x.device)[None, :]
@@ -107,6 +107,28 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
     else:
         raise ValueError(f"attn_impl {impl!r}: want 'xla' or 'flash'")
     return _out(p, o), cache
+
+
+def _flash_blocks(q, k, v, **kw):
+    """K3 on each rank's block of the DTensors q (B, S, H, dh), k, v (B, S,
+    Hkv, dh).  Exact where every rank holds whole sequences and whole GQA
+    groups: on each mesh dimension q and k/v are both replicated, both split
+    by batch, or both split by heads (the reference's placement with SP off
+    and the head counts divisible).  Any other placement (a sequence split
+    over ranks, as SP gives, or the kv heads left whole beside split q
+    heads) raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    ok = (Replicate(), Shard(0), Shard(2))
+    for qp, kp, vp in zip(q.placements, k.placements, v.placements):
+        if not (qp == kp == vp and qp in ok):
+            raise NotImplementedError(
+                f"flash attention (K3) on q placed {tuple(q.placements)} and k/v placed "
+                f"{tuple(k.placements)}/{tuple(v.placements)}: K3 runs on each rank's block "
+                "only where whole sequences and whole head groups sit on one rank; "
+                "use attn_impl='xla' or a policy with sp=False")
+    o = flash_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(o, q.device_mesh, q.placements, run_check=False)
 
 
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):

@@ -136,16 +136,12 @@ class Model(nn.Module):
         return x
 
     def _token_embeds(self, tokens):
-        """The token embeddings; sharded token ids look their rows up on each
-        rank's rows with the table gathered (DTensor's own index rules fail
-        in the backward pass in PyTorch 2.11)."""
+        """The token embeddings; sharded token ids are looked up in the
+        vocabulary's shares over model (``ShardingPolicy.vocab_lookup``)."""
         tokens = self._tokens(tokens)
         if not is_distributed(tokens):
             return self.embed(tokens)
-        pol = self.policy
-        split = pol.row_split(tokens.shape[0])
-        rows = pol.gathered(self.embed.table, split)[pol.local_rows(tokens, split)]
-        return pol.from_rows(rows, split, tokens)
+        return self.policy.vocab_lookup(self.embed.table, tokens)
 
     def _logits(self, hidden):
         h = self.final_norm(hidden, self.cfg.norm_eps)
@@ -159,16 +155,11 @@ class Model(nn.Module):
         """Sum over the masked positions of the fp32 cross entropy."""
         logits = self._logits(hidden).float()
         if is_distributed(logits):
-            # the gold logit's gather on each rank's rows, the vocab whole
-            # there (DTensor's gather rules fail on a sharded vocab)
-            pol = self.policy
-            split = pol.row_split(logits.shape[0])
-            gold = pol.from_rows(torch.gather(pol.local_rows(logits, split), -1,
-                                              pol.local_rows(labels, split)[..., None])[..., 0],
-                                 split, logits)
+            # the vocabulary stays split over model (ShardingPolicy.vocab_ce)
+            lz, gold = self.policy.vocab_ce(logits, labels)
         else:
+            lz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        lz = torch.logsumexp(logits, dim=-1)
         return torch.sum((lz - gold) * mask)
 
     # -- train forward -----------------------------------------------------------

@@ -22,12 +22,14 @@ loss: with ``want_aux=False`` it is not computed and ``None`` comes back.
 """
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.topk_gating import topk_gating
-from repro_torch.models.layers import MLP, RMSNorm, mlp, normal_param, rmsnorm
+from repro_torch.models.layers import MLP, RMSNorm, linear, mlp, normal_param, rmsnorm
 from repro_torch.parallel.sharding import is_distributed
 
 
@@ -92,41 +94,76 @@ def moe_ffn(p: MoE, x, cfg, want_aux: bool = True, policy=None, grouped: bool = 
     """x: (B, S, D) -> (out (B, S, D), aux loss | None): routed plus shared
     experts, and the Switch loss when ``want_aux``.
 
-    Under a sharding policy with DTensor inputs the dispatch is group-local
-    (the reference's ``moe.py:67-150``): g = ``policy.moe_groups(B)`` groups
-    of contiguous rows, one per data-parallel rank, each with its own
-    capacity; each rank runs the dispatch on its group's rows as plain
-    tensors (K5 included) with the expert weights gathered.  ``grouped=False``
-    (the decode step, as the reference's) keeps one group.  On plain
-    tensors under a policy (a build on ``meta`` with a shape-only mesh) the
-    g groups are dispatched on the one device."""
+    The dispatch is group-local, as the reference's (``moe.py:67-150``):
+    under a sharding policy g = ``policy.moe_groups(B)`` groups of
+    contiguous rows, each with its own capacity.  ``grouped=False`` (the
+    decode step, as the reference's) keeps one group.  On plain tensors
+    under a policy (a build on ``meta`` with a shape-only mesh) the g groups
+    are dispatched on the one device."""
     if policy is not None and is_distributed(x):
         return _moe_sharded(p, x, cfg, want_aux, policy, grouped)
     groups = policy.moe_groups(x.shape[0]) if (policy is not None and grouped) else 1
-    out, stats = moe_local(p, x, cfg, want_aux, groups)
+    h = rmsnorm(x, p.norm.scale, cfg.norm_eps)
+    out, stats = dispatch(h, linear(h.float(), p.router), cfg, want_aux, groups,
+                          lambda buf: expert_products(buf, p.experts))
+    out = _with_shared(p, out, h, cfg)
     return out, (None if stats is None else cfg.n_experts * torch.sum(stats[0] * stats[1]))
 
 
 def _moe_sharded(p, x, cfg, want_aux, policy, grouped):
+    """``moe_ffn`` on DTensors.  The norm, the router and the shared experts
+    run under DTensor as the reference's do.  The gate logits and the
+    normed rows go to each rank's group (its rows over the data axes, the
+    reference's ``constrain_tokens_for_moe``) as plain tensors: K5 and the
+    dispatch run there.  The expert buffer takes the reference's placement
+    (``constrain_expert_buffer``: groups over data, experts over model), so
+    each rank runs its own experts on its group's rows with those experts'
+    weights gathered over the FSDP axes, and the combine gathers the expert
+    outputs over model."""
     split = grouped and policy.row_split(x.shape[0])
-    # local_rows is the reference's constrain_tokens_for_moe: rows over the data axes
-    out, stats = moe_local(policy.gathered_params(p, split), policy.local_rows(x, split),
-                           cfg, want_aux)
-    out = policy.constrain_residual(policy.from_rows(out, split, x))
+    if split:
+        x = policy.constrain_tokens_for_moe(x)
+    h = rmsnorm(x, p.norm.scale, cfg.norm_eps)
+    e = cfg.n_experts
+
+    def experts(buf):
+        we = p.experts
+        local = types.SimpleNamespace(**{n: policy.expert_weights(getattr(we, n), split)
+                                         for n in ("wi_gate", "wi_up", "wo")})
+        y = expert_products(policy.expert_block(buf, split, x), local)
+        return policy.expert_gather(y, e, split, x)
+
+    out, stats = dispatch(policy.local_rows(h, split),
+                          policy.local_rows(linear(h.float(), p.router), split),
+                          cfg, want_aux, 1, experts)
+    out = _with_shared(p, policy.constrain_residual(policy.from_rows(out, split, x)), h, cfg)
     if stats is None:
         return out, None
     # the means over every group's rows (equal-sized groups), then the product
     me, ce = (policy.from_rows(m[None], split, x).mean(dim=0) for m in stats)
-    return out, cfg.n_experts * torch.sum(me * ce)
+    return out, e * torch.sum(me * ce)
 
 
-def moe_local(p, x, cfg, want_aux: bool = True, groups: int = 1):
-    """The MoE FFN on plain tensors: x (B, S, D) -> (out, (me, ce) | None),
-    the Switch loss's means when ``want_aux``.  With ``groups`` = g the rows
-    form g equal groups of contiguous tokens, each dispatched within
-    itself at capacity ``expert_capacity(T / g)``, as the reference's
-    group-local dispatch on one device."""
-    b, s, d = x.shape
+def _with_shared(p, out, h, cfg):
+    if cfg.n_shared_experts:
+        out = out + mlp(h, p.shared.wi_gate, p.shared.wi_up, p.shared.wo)
+    return out
+
+
+def expert_products(buf, we):
+    """SwiGLU of each expert on its rows: buf (E, C, D) -> (E, C, D)."""
+    return torch.bmm(F.silu(torch.bmm(buf, we.wi_gate)) * torch.bmm(buf, we.wi_up), we.wo)
+
+
+def dispatch(h, gate_logits, cfg, want_aux: bool, groups: int, experts):
+    """Routing, dispatch and combine on plain tensors: the normed rows h
+    (B, S, D) and their fp32 gate logits (B, S, E) -> (out (B, S, D),
+    (me, ce) | None), the Switch loss's means when ``want_aux``.  With
+    ``groups`` = g the rows form g equal groups of contiguous tokens, each
+    dispatched within itself at capacity ``expert_capacity(T / g)``, as the
+    reference's group-local dispatch on one device.  ``experts`` maps the
+    expert buffer (E, g·C, D) to the experts' outputs of the same shape."""
+    b, s, d = h.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
     g = groups
@@ -135,16 +172,15 @@ def moe_local(p, x, cfg, want_aux: bool = True, groups: int = 1):
     tl = t // g
     c = expert_capacity(tl, cfg)
 
-    h = rmsnorm(x, p.norm.scale, cfg.norm_eps)
     xt = h.reshape(t, d)
-    gate_logits = xt.float() @ p.router                      # (T, E) fp32
+    gate_logits = gate_logits.reshape(t, e)
     top_p, top_ids = topk_gating(gate_logits, k)             # K5
     weights = top_p / top_p.sum(dim=-1, keepdim=True)
 
     top_ids = top_ids.long()
     stats = aux_stats(gate_logits, top_ids, e, k) if want_aux else None
     # ranks within (group, expert): group i's experts are segments i·E .. i·E + E-1
-    gid = torch.arange(t, device=x.device) // tl
+    gid = torch.arange(t, device=h.device) // tl
     seg = top_ids + (gid * e)[:, None] if g > 1 else top_ids
     rank = _rank_in_expert(seg.reshape(t * k), g * e).reshape(t, k)
     keep = rank < c
@@ -158,7 +194,7 @@ def moe_local(p, x, cfg, want_aux: bool = True, groups: int = 1):
     # dropped ones into their group's sentinel row e·c, which is then cut
     # off: the shapes stay static (no boolean mask, so no device-to-host
     # sync, and the build on the meta device can run it)
-    buf = torch.zeros((g * row, d), dtype=xt.dtype, device=x.device)
+    buf = torch.zeros((g * row, d), dtype=xt.dtype, device=h.device)
     buf.index_copy_(0, slot.reshape(t * k),
                     xt[:, None, :].expand(t, k, d).reshape(t * k, d))
     buf = buf.reshape(g, row, d)[:, :e * c].reshape(g, e, c, d)
@@ -167,16 +203,12 @@ def moe_local(p, x, cfg, want_aux: bool = True, groups: int = 1):
     else:
         buf = buf.reshape(e, c, d)
 
-    we = p.experts
-    y = torch.bmm(F.silu(torch.bmm(buf, we.wi_gate)) * torch.bmm(buf, we.wi_up), we.wo)
+    y = experts(buf)
 
     # combine: each token pulls its k expert outputs (the sentinel rows are 0)
     y = y.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d) if g > 1 else y
     y_flat = torch.cat([y.reshape(g, e * c, d), y.new_zeros((g, 1, d))], dim=1).reshape(g * row, d)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    out = torch.zeros((t, d), dtype=h.dtype, device=h.device)
     for i in range(k):
-        out = out + y_flat[slot[:, i]] * (weights[:, i, None] * keep[:, i, None]).to(x.dtype)
-    out = out.reshape(b, s, d)
-    if cfg.n_shared_experts:
-        out = out + mlp(h, p.shared.wi_gate, p.shared.wi_up, p.shared.wo)
-    return out, stats
+        out = out + y_flat[slot[:, i]] * (weights[:, i, None] * keep[:, i, None]).to(h.dtype)
+    return out.reshape(b, s, d), stats

@@ -25,10 +25,16 @@ unchanged, so a model without DTensor inputs runs as before.
 
 Row-local regions (the MoE dispatch and the Mamba-2 mixer, whose work is
 per sequence) run on plain local tensors: ``local_rows`` takes this rank's
-rows (its group when the rows are split over the data axes), ``gathered``
-the full weights, whose gradients are then summed over the data axes that
-split the rows, and ``from_rows`` wraps the local result again.  The
-kernels (K5, K4) therefore see plain tensors on the rank's device.
+rows (its group when the rows are split over the data axes) and
+``from_rows`` wraps the local result again, so the kernels (K5, K4) see
+plain tensors on the rank's device.  The MoE's expert products take the
+reference's expert-buffer placement (groups over data, experts over
+model): ``expert_block`` gives a rank its experts' rows of its group's
+buffer, ``expert_weights`` those experts' weights, and ``expert_gather``
+brings the outputs of every expert back.  The Mamba-2 mixer takes its
+weights whole (``gathered``), their gradients summed over the data axes
+that split the rows.  The embedding lookup and the cross entropy keep the
+vocabulary split over model (``vocab_lookup``, ``vocab_ce``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 from repro_torch.launch.mesh import MeshShape, axes_of
 
 Spec = Tuple[Any, ...]
+_CONTEXT_DEPTH = [0]      # nesting of ShardingPolicy.context on this process
 
 
 def _right(shape, *trailing) -> Spec:
@@ -251,18 +258,18 @@ class ShardingPolicy:
         taken as replicated.  The model's entry points and the train step
         enter it; a backward pass run outside them (``autograd.grad`` of a
         ``loss_fn``) must run inside it too, since its ops meet the same
-        plain tensors: ``implicit_replication``'s switch, restored on
-        exit (``implicit_replication`` itself turns it off on exit, which
-        would end an enclosing one, as a train step's around the loss)."""
-        from torch.distributed.tensor import DTensor
+        plain tensors.  Only the outermost entry opens PyTorch's
+        ``implicit_replication``: it turns the switch off on its exit, which
+        would end an enclosing one (a train step's around the loss)."""
+        from torch.distributed.tensor.experimental import implicit_replication
 
-        dispatcher = DTensor._op_dispatcher
-        was = dispatcher._allow_implicit_replication
-        dispatcher._allow_implicit_replication = True
-        try:
-            yield
-        finally:
-            dispatcher._allow_implicit_replication = was
+        outer = _CONTEXT_DEPTH[0] == 0
+        with implicit_replication() if outer else contextlib.nullcontext():
+            _CONTEXT_DEPTH[0] += 1
+            try:
+                yield
+            finally:
+                _CONTEXT_DEPTH[0] -= 1
 
     # -- activation constraints (the reference's constrain_*) ------------------------
     def constrain_residual(self, x):
@@ -298,6 +305,135 @@ class ShardingPolicy:
         b, v = x.shape[0], x.shape[-1]
         spec = (self._fits(b, self.dp),) + (None,) * (x.ndim - 2) + (self._fits(v, self.tp_axis),)
         return self.redistribute(x, spec)
+
+    def constrain_tokens_for_moe(self, x):
+        """(B, S, D) purely batch-sharded (the dispatch groups own contiguous rows)."""
+        return self.redistribute(x, (self._fits(x.shape[0], self.dp), None, None))
+
+    # -- expert parallelism (the reference's constrain_expert_buffer) ------------------
+    def _expert_placements(self, n_experts: int, split: bool):
+        """(g, E, ...): groups over the data axes when the rows are split,
+        experts over model where the axis divides E."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        ep = self._fits(n_experts, self.tp_axis) is not None
+        return tuple(Shard(0) if (split and a in self.dp_axes)
+                     else Shard(1) if (ep and a == self.tp_axis) else Replicate()
+                     for a in self.axis_names)
+
+    def expert_block(self, buf, split: bool, like):
+        """This group's expert buffer ``buf`` (E, C, D), equal on every
+        model rank, -> this rank's block of it: (E / tp, C, D) where the
+        model axis divides E.  In the backward pass the blocks' gradients
+        are gathered over model, so every rank gets its rows' whole
+        gradient."""
+        from torch.distributed.tensor import DTensor
+
+        mesh = like.device_mesh
+        dt = DTensor.from_local(buf[None], mesh, self._rows(split), run_check=False)
+        return dt.redistribute(mesh, self._expert_placements(buf.shape[0], split)).to_local()[0]
+
+    def expert_gather(self, y, n_experts: int, split: bool, like):
+        """The inverse of ``expert_block``: this rank's expert outputs
+        (E / tp, C, D) -> the group's (E, C, D) on every model rank (an
+        all-gather over model, the reference's combine)."""
+        from torch.distributed.tensor import DTensor
+
+        mesh, rows = like.device_mesh, self._rows(split)
+        dt = DTensor.from_local(y[None], mesh, self._expert_placements(n_experts, split),
+                                run_check=False)
+        return dt.redistribute(mesh, rows).to_local(grad_placements=rows)[0]
+
+    def expert_weights(self, w, split: bool):
+        """This rank's experts of the stacked expert weight DTensor ``w``
+        (E, ...) as a plain tensor: its share of E over model where the axis
+        divides E (the parameter's own placement there), whole over the FSDP
+        axes.  The gradient is summed over the data axes when the rows are
+        ``split`` (each data rank saw other rows)."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        ep = self._fits(w.shape[0], self.tp_axis) is not None
+        keep = [Shard(0) if (ep and a == self.tp_axis) else Replicate() for a in self.axis_names]
+        grad = [Partial() if (split and a in self.dp_axes) else pl
+                for a, pl in zip(self.axis_names, keep)]
+        return w.redistribute(w.device_mesh, keep).to_local(grad_placements=grad)
+
+    # -- the vocabulary over model (the reference's embedding table and logits) ---------
+    def _vocab_placements(self, vocab: int, dim: int, split: bool):
+        """Dimension ``dim`` (the vocabulary) over model where the axis
+        divides ``vocab``, the rows (dimension 0) over the data axes when
+        ``split``, replicated elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        vs = self._fits(vocab, self.tp_axis) is not None
+        return tuple(Shard(dim) if (vs and a == self.tp_axis)
+                     else Shard(0) if (split and a in self.dp_axes) else Replicate()
+                     for a in self.axis_names)
+
+    @staticmethod
+    def _share(t, dim: int):
+        """(offset, size) of this rank's share of dimension ``dim`` of the DTensor ``t``."""
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                              t.placements)
+        return offset[dim], shape[dim]
+
+    def _sum_of_shares(self, part, vocab: int, split: bool, mesh):
+        """This rank's result ``part`` over its rows, from its vocabulary
+        share alone -> the DTensor of the shares' sum (pending over model
+        where the vocabulary is split, until its first use)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        stacked = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim != 0
+                        else Shard(1) if isinstance(pl, Shard) else Replicate()
+                        for pl in self._vocab_placements(vocab, 1, split))
+        return DTensor.from_local(part[None], mesh, stacked, run_check=False).sum(dim=0)
+
+    def vocab_lookup(self, table, tokens):
+        """The embedding rows (B, S, D) of the token-id DTensor ``tokens``
+        from the table DTensor (V, D), with the vocabulary over model as the
+        reference places it: each rank looks its rows' ids up in its share
+        of the vocabulary, gathered over the FSDP axes only, and the shares'
+        rows are summed over model.  (DTensor's own index rules fail in the
+        backward pass in PyTorch 2.11.)"""
+        import torch
+        from torch.distributed.tensor import Partial
+
+        split = self.row_split(tokens.shape[0])
+        keep = self._vocab_placements(table.shape[0], 0, False)
+        grad = [Partial() if (split and a in self.dp_axes) else pl
+                for a, pl in zip(self.axis_names, keep)]
+        share = table.redistribute(table.device_mesh, keep)
+        off, n = self._share(share, 0)
+        local = share.to_local(grad_placements=grad)
+        ids = self.local_rows(tokens, split) - off
+        inside = (ids >= 0) & (ids < n)
+        rows = torch.where(inside[..., None], local[ids.clamp(0, n - 1)], 0)
+        return self._sum_of_shares(rows, table.shape[0], split, table.device_mesh)
+
+    def vocab_ce(self, logits, labels):
+        """(logsumexp, gold logit) over the last dimension of the fp32
+        DTensor ``logits`` (B, S, V) with the vocabulary over model, as the
+        reference's cross entropy takes it: the max and the sum of the
+        exponentials reduce over model (DTensor's own ``logsumexp`` gathers
+        the vocabulary), and the gold logit comes from the rank whose share
+        holds the label (its ``gather`` rule fails on a split vocabulary in
+        PyTorch 2.11)."""
+        import torch
+
+        b, _, v = logits.shape
+        split = self.row_split(b)
+        mesh = logits.device_mesh
+        m = self.redistribute(logits.detach().amax(dim=-1, keepdim=True),
+                              (self._fits(b, self.dp), None, None))
+        lz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        share = logits.redistribute(mesh, self._vocab_placements(v, 2, split))
+        off, n = self._share(share, 2)
+        lab = self.local_rows(labels, split) - off
+        inside = (lab >= 0) & (lab < n)
+        gold = torch.gather(share.to_local(), -1, lab.clamp(0, n - 1)[..., None])[..., 0]
+        return lz, self._sum_of_shares(torch.where(inside, gold, 0), v, split, mesh)
 
     # -- row-local regions ---------------------------------------------------------------
     def _rows(self, split: bool):

@@ -33,6 +33,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import is_distributed
+
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
@@ -51,15 +53,9 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def _is_dt(t) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(t, DTensor)
-
-
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
-    if _is_dt(t):
+    if is_distributed(t):
         t = t.full_tensor()
     t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
@@ -81,7 +77,7 @@ def _like(template: Any, values: Dict[str, torch.Tensor], prefix: str = "") -> A
             out[key] = _like(leaf, values, name + "/")
         elif name not in values:
             raise KeyError(f"checkpoint missing leaf {name!r}")
-        elif _is_dt(leaf):
+        elif is_distributed(leaf):
             from torch.distributed.tensor import distribute_tensor
 
             out[key] = distribute_tensor(values[name].to(device=leaf.device, dtype=leaf.dtype),

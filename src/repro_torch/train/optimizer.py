@@ -38,6 +38,8 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import is_distributed
+
 Tree = Dict[str, torch.Tensor]
 
 
@@ -56,19 +58,13 @@ def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0
     return lr
 
 
-def _is_dt(t) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(t, DTensor)
-
-
 def _full(t):
-    return t.full_tensor() if _is_dt(t) else t
+    return t.full_tensor() if is_distributed(t) else t
 
 
 def _placed(t, like):
     """``t`` in the placements of ``like`` (both DTensors), else as it is."""
-    if _is_dt(like) and tuple(t.placements) != tuple(like.placements):
+    if is_distributed(like) and tuple(t.placements) != tuple(like.placements):
         return t.redistribute(like.device_mesh, like.placements)
     return t
 
@@ -104,7 +100,7 @@ def _zeros32_without(p, dim):
     """fp32 zeros shaped like ``p`` without dimension ``dim`` (a negative
     index); a DTensor keeps the placements of the dimensions left."""
     shape = p.shape[:dim] + (p.shape[dim + 1:] if dim != -1 else ())
-    if not _is_dt(p):
+    if not is_distributed(p):
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 

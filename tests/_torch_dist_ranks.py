@@ -22,6 +22,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_STEPS = 4
 MOE_BATCH = 4
+MOE_TRAIN_STEPS = 3
 
 
 def free_port() -> int:
@@ -117,15 +118,17 @@ def sharding_checks(rank, jobs):
         job = jobs["train"][opt_name]
         policy = ShardingPolicy(mesh)
         model, state, step, _, batch = _train_run(job, opt_name, grad_rs, policy)
-        losses = []
+        losses, gnorms = [], []
         for i in range(TRAIN_STEPS):
             state, met = step(state, batch(i))
             losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
         specs = policy.param_specs(model)
         placed = {n: (tuple(p.placements), policy.placements(specs[n]))
                   for n, p in model.named_parameters()}
         out["train"][variant] = {
-            "losses": losses, "ref_losses": job["ref_losses"], "steps": int(state["step"]),
+            "losses": losses, "grad_norms": gnorms, "steps": int(state["step"]),
+            "params": {n: p.detach().full_tensor() for n, p in model.named_parameters()},
             "placements_ok": all(a == b for a, b in placed.values())
             and any(s for s in specs.values()),
             "placements": {n: str(a) for n, (a, _) in list(placed.items())[:6]}}
@@ -162,6 +165,9 @@ def sharding_checks(rank, jobs):
                 res["gating_rows"], res["dropped"] = list(rows), sum(drops)
     res["groups"] = policy.moe_groups(MOE_BATCH)
     out["moe"] = res
+    out["moe_train"] = _grouped_moe_train(jobs, mesh, cfg, batch)
+    out["mamba_grads"] = _mamba_grads(jobs, mesh)
+    out["flash"] = _sharded_flash(jobs, mesh)
 
     # ---- decode steps with the caches sharded by sequence
     out["decode"] = {}
@@ -213,6 +219,94 @@ def sharding_checks(rank, jobs):
     out["checkpoint"] = {"files_equal": files_equal, "n_files": n_files,
                          "next_loss": float(next_met["loss"]),
                          "resumed_loss": float(resumed["loss"])}
+    return out
+
+
+def _grouped_moe_train(jobs, mesh, cfg, batch):
+    """Reduced deepseek-moe-16b at dp = 2 (g = 2, experts over model, FSDP
+    on): the gradients of one loss, then MOE_TRAIN_STEPS AdamW steps."""
+    from repro_torch.data import to_device
+    from repro_torch.parallel.sharding import ShardingPolicy
+    from repro_torch.train import init_train_state, make_train_step, optimizer
+
+    policy = ShardingPolicy(mesh, sp=False)
+    model = _model(None, jobs["moe_params"], policy, cfg=cfg, remat="none", sp=False)
+    placed = to_device(batch, "cpu", policy)
+    opt = optimizer.adamw(optimizer.cosine_schedule(1e-3, 2, 20))
+    state = init_train_state(model, opt)          # turns the weights' gradients on
+    step = make_train_step(model, opt)
+    names = [n for n, _ in model.named_parameters()]
+    with policy.context():
+        loss = model.loss_fn(placed)[0]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    losses, gnorms = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        state, met = step(state, placed)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    return {"loss": float(loss.detach().full_tensor()),
+            "grads": {n: g.full_tensor() for n, g in zip(names, grads)},
+            "expert_placements": str(model.stack.layers[-1].ffn.experts.wi_gate.placements),
+            "losses": losses, "grad_norms": gnorms,
+            "params": {n: p.detach().full_tensor() for n, p in model.named_parameters()}}
+
+
+def _mamba_grads(jobs, mesh):
+    """Reduced mamba2-780m on the (2, 2) mesh (SP, FSDP; the mixer on each
+    data rank's rows): the loss and every gradient of one batch."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.parallel.sharding import ShardingPolicy
+    from repro_torch.train import init_train_state, optimizer
+
+    cfg = reduced(get_arch("mamba2-780m"))
+    policy = ShardingPolicy(mesh)
+    model = _model(None, jobs["mamba_params"], policy, cfg=cfg, remat="none")
+    init_train_state(model, optimizer.adamw(optimizer.cosine_schedule(1e-3, 2, 20)))
+    batch = to_device(SyntheticLM(cfg, DataConfig(4, 32, 3)).batch(0), "cpu", policy)
+    with policy.context():
+        loss = model.loss_fn(batch)[0]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {"loss": float(loss.detach().full_tensor()),
+            "grads": {n: g.full_tensor() for (n, _), g in zip(model.named_parameters(), grads)}}
+
+
+def _sharded_flash(jobs, mesh):
+    """Reduced tinyllama-1.1b prefill with ``attn_impl="flash"``: on a (2, 2)
+    mesh with SP off (batch over data, heads over model) against the
+    unsharded plain path, and with SP on, where K3 must refuse."""
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 16)))
+    calls, real = [], attention.flash_attention
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), type(q).__name__))
+        return real(q, k, v, **kw)
+
+    out = {}
+    with torch.no_grad():
+        plain = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"])
+        out["plain"] = plain.prefill({"tokens": tokens})[0].numpy()
+        attention.flash_attention = recording
+        try:
+            policy = ShardingPolicy(mesh, sp=False)
+            model = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"], policy,
+                           attn_impl="flash", sp=False)
+            out["sharded"] = model.prefill(policy.batch_shardings({"tokens": tokens}))[0] \
+                .full_tensor().numpy()
+            out["calls"] = list(calls)
+            sp = ShardingPolicy(mesh, sp=True)
+            model = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"], sp,
+                           attn_impl="flash", sp=True)
+            try:
+                model.prefill(sp.batch_shardings({"tokens": tokens}))
+                out["sp_error"] = None
+            except NotImplementedError as e:
+                out["sp_error"] = str(e)
+        finally:
+            attention.flash_attention = real
     return out
 
 

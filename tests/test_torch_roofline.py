@@ -366,17 +366,39 @@ def test_train_cell_state_bytes_and_collectives_hand_count(fsdp, grad_rs, sp):
     assert ("data" in str(policy.param_specs(model))) == fsdp
     x = 4 * 16 / 2 * 64 * 2                    # tokens / dp × d_model × bf16
     tp_red = 3 * 4 * x / 2                     # 3 passes (remat) × 4 reductions
-    ce = 2 * 2 * (4 * 16 / 2) * 4 / 2
-    if sp:
-        gather, rs = gather + tp_red, rs + tp_red
+    ce = 3 * 2 * (4 * 16 / 2) * 4 / 2          # max, sum, gold: fp32 all-reduces
+    if sp:                                     # + the embedding's sum over vocab shares
+        gather, rs = gather + tp_red + x / 2, rs + tp_red + x / 2
     else:
-        ar += 2 * tp_red
+        ar += 2 * tp_red + 2 * x / 2
     ar += ce
     want = {k: v for k, v in (("all-gather", gather), ("reduce-scatter", rs),
                               ("all-reduce", ar)) if v}
     assert art.collectives == pytest.approx(want, rel=1e-12)
     assert art.output_bytes == int(state)
     assert art.arg_bytes == int(state + 2 * 4 * 16 * 8 / 2)      # tokens, labels: int64 / dp
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_train_moe_collectives_follow_the_expert_layout(sp):
+    """Reduced deepseek-moe-16b (an attention + dense layer, an attention +
+    MoE layer with one shared expert; E = 4, V = 256) at dp = 2, tp = 2,
+    batch 4 × 16, bf16, remat full: the tensor-parallel wire bytes of the
+    docstring's formulas, counted here by hand (no parameter terms)."""
+    cfg = reduced(get_arch("deepseek-moe-16b"))
+    flags = BuildFlags(sp=sp, remat="full")
+    got = build.train_collective_bytes(cfg, ShapeConfig("t", "train", 16, 4), flags, 2, 2, [])
+    x = 32 * 64 * 2                            # tokens / dp × d_model × bf16
+    c = moe.expert_capacity(32, cfg)           # g = 2 groups of 32 tokens
+    assert c == 24
+    experts = 3 * (4 * c * 64 * 2) / 2         # 3 passes × the group's (E, C, d) outputs
+    ce = 3 * 2 * 32 * 4 / 2                    # max, sum, gold: fp32 all-reduces
+    if sp:   # 2 mixers + dense + shared + the MoE's rows taken whole, 3 passes; embedding
+        want = {"all-gather": 3 * 5 * x / 2 + experts + x / 2,
+                "reduce-scatter": 3 * 5 * x / 2 + x / 2, "all-reduce": ce}
+    else:    # 2 mixers + dense + shared, 3 passes; the embedding's all-reduce
+        want = {"all-reduce": 3 * 4 * 2 * x / 2 + 2 * x / 2 + ce, "all-gather": experts}
+    assert got == pytest.approx(want, rel=1e-12)
 
 
 def test_pick_optimizer_rule():

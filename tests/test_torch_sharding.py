@@ -14,11 +14,17 @@
   reduced tinyllama-1.1b in fp32 on a (2, 2) ``(data, model)`` mesh with
   SP, four train steps from the reference's weights (``params_from_jax``)
   on the reference's ``SyntheticLM`` batches, against the reference's
-  single-device losses at rtol 2e-4 (``tests/test_sharding.py``'s
-  tolerance), with AdamW and with Adafactor plus ``grad_rs``; grouped MoE
-  (reduced deepseek-moe-16b, g = 2) equal to g = 1 at capacity factor 4
-  and, at the default capacity where tokens drop, to the reference's
-  grouped loss on a (2, 4) mesh, both at rtol 1e-5; reduced glm4-9b decode
+  single-device losses and grad norms at rtol 2e-4
+  (``tests/test_sharding.py``'s tolerance) and weights after the steps,
+  with AdamW and with Adafactor plus ``grad_rs``; grouped MoE (reduced
+  deepseek-moe-16b, g = 2) equal to g = 1 at capacity factor 4 and, at
+  the default capacity where tokens drop, to the reference's grouped loss
+  on a (2, 4) mesh, both at rtol 1e-5; a grouped MoE train step at dp = 2
+  with the experts over model: every gradient, then three steps' losses,
+  grad norms and weights against the reference's grouped step; reduced
+  mamba2-780m's gradients against the reference's single device; a flash
+  prefill (K3 on each rank's block) with SP off, and the error with SP
+  on; reduced glm4-9b decode
   steps with the caches placed by ``cache_spec`` at batch 4 and 1, the
   logits equal to the unsharded steps' at 2e-5, inside
   ``tests/test_torch_models.py``'s fp32 tolerance (5e-5); a sharded state's checkpoint equal file for file to the
@@ -41,7 +47,7 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import SHAPES, get_arch, list_archs, reduced
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import BuildFlags, Model
-from repro_torch.models.convert import layer_prefixes, reference_path
+from repro_torch.models.convert import layer_prefixes, params_from_jax, reference_path
 from repro_torch.parallel.sharding import ShardingPolicy
 from tests import _torch_dist_ranks as ranks
 from tests.conftest import run_with_devices
@@ -49,6 +55,11 @@ from tests.conftest import run_with_devices
 MESHES = [((1,), ("data",)), ((2, 4), ("data", "model")), ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
 MESH_IDS = ["host", "2x4", "16x16", "2x16x16"]
+# tests/test_torch_train.py's tolerances for gradients and for the weights
+# after train steps (see there why AdamW's steps need STEP_PARAM_TOL)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
+STEP_PARAM_TOL = dict(atol=2e-3, rtol=0)
 
 
 def _norm(spec, ndim):
@@ -169,17 +180,29 @@ def _jax_losses(opt_name, steps=ranks.TRAIN_STEPS):
     params = jax.tree.map(np.asarray, state["params"])
     step = jax.jit(jmake_train_step(jm, jo))
     data = JSyntheticLM(jreduced(jget_arch(name)), JDataConfig(4, 32, 1))
-    losses = []
+    losses, gnorms = [], []
     for i in range(steps):
         state, m = step(state, device_put_batch(data.batch(i)))
         losses.append(float(m["loss"]))
-    return params, losses
+        gnorms.append(float(m["grad_norm"]))
+    return params, losses, gnorms, jax.tree.map(np.asarray, state["params"])
 
 
 def _jax_moe_params():
     cfg = jreduced(jget_arch("deepseek-moe-16b"))
     jm = JModel(cfg, JFlags(dtype="float32", remat="none", sp=False))
     return jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+
+
+def _jax_mamba_grads():
+    """Reduced mamba2-780m's weights, and the loss and gradients of one
+    batch on the reference's single device."""
+    cfg = jreduced(jget_arch("mamba2-780m"))
+    jm = JModel(cfg, JFlags(dtype="float32", remat="none", sp=False))
+    params = jm.init(jax.random.key(0))
+    batch = device_put_batch(JSyntheticLM(cfg, JDataConfig(4, 32, 3)).batch(0))
+    loss, grads = jax.value_and_grad(lambda p: jm.loss_fn(p, batch)[0])(params)
+    return jax.tree.map(np.asarray, params), float(loss), jax.tree.map(np.asarray, grads)
 
 
 def _jax_glm_params():
@@ -194,35 +217,85 @@ from repro.models import BuildFlags, Model
 from repro.parallel.sharding import ShardingPolicy
 from repro.launch.mesh import make_mesh_dp_tp
 from repro.data import DataConfig, SyntheticLM, device_put_batch
+from repro.train import adamw, cosine_schedule, make_train_step
 
 arch = reduced(get_arch("deepseek-moe-16b"))
 batch = SyntheticLM(arch, DataConfig(batch=4, seq_len=16, seed=2)).batch(0)
 policy = ShardingPolicy(make_mesh_dp_tp(2, 4), sp=False, fsdp=False)
 m = Model(arch, BuildFlags(dtype="float32", remat="none", sp=False, fsdp=False), policy)
 params = m.init(jax.random.key(0))
-loss, _ = m.loss_fn(params, device_put_batch(batch, policy))
+placed = device_put_batch(batch, policy)
+loss, _ = m.loss_fn(params, placed)
 print("GROUPED_LOSS", float(loss).hex())
+grads = jax.jit(jax.grad(lambda p: m.loss_fn(p, placed)[0]))(params)
+opt = adamw(cosine_schedule(1e-3, 2, 20))
+state = {"params": params, "opt": opt.init(params), "step": np.zeros((), np.int32)}
+step = jax.jit(make_train_step(m, opt))
+losses, gnorms = [], []
+for _ in range(%(steps)d):
+    state, met = step(state, placed)
+    losses.append(float(met["loss"]))
+    gnorms.append(float(met["grad_norm"]))
+flat = lambda tree, tag: {tag + "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+                          for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+np.savez(%(out)r, losses=np.array(losses), grad_norms=np.array(gnorms),
+         **flat(grads, "grads:"), **flat(state["params"], "params:"))
 """
 
 
 @pytest.fixture(scope="module")
 def dist_results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
+    mamba_params, mamba_loss, mamba_grads = _jax_mamba_grads()
     jobs = {"train": {}, "moe_params": _jax_moe_params(), "glm_params": _jax_glm_params(),
-            "tmp": str(tmp)}
+            "mamba_params": mamba_params, "tmp": str(tmp)}
+    ref = {}
     for opt_name in ("adamw", "adafactor"):
-        params, losses = _jax_losses(opt_name)
-        jobs["train"][opt_name] = {"params": params, "ref_losses": losses}
-    out = run_with_devices(_GROUPED_REF, n_devices=8, timeout=300)
+        params, losses, gnorms, final = _jax_losses(opt_name)
+        jobs["train"][opt_name] = {"params": params}
+        ref[opt_name] = {"losses": losses, "grad_norms": gnorms, "params": final}
+    npz = str(tmp / "grouped_ref.npz")
+    out = run_with_devices(_GROUPED_REF % {"steps": ranks.MOE_TRAIN_STEPS, "out": npz},
+                           n_devices=8, timeout=300)
     grouped_ref_loss = float.fromhex(out.split("GROUPED_LOSS ")[1].split()[0])
-    return dict(ranks.spawn(ranks.sharding_checks, jobs, world=4),
-                grouped_ref_loss=grouped_ref_loss)
+    with np.load(npz) as z:
+        grouped = {k: z[k] for k in z.files}
+    return dict(ranks.spawn(ranks.sharding_checks, jobs, world=4), ref=ref,
+                grouped_ref_loss=grouped_ref_loss, grouped_ref=grouped,
+                mamba_ref={"loss": mamba_loss, "grads": mamba_grads})
+
+
+def _tree(flat, tag):
+    """The ``tag``-prefixed "/"-joined leaves of an npz as a nested dict."""
+    from repro_torch.models.convert import unflatten
+
+    return unflatten({k[len(tag):]: v for k, v in flat.items() if k.startswith(tag)})
+
+
+def _params_close(got, want_tree, cfg):
+    """After AdamW or Adafactor steps, every weight within STEP_PARAM_TOL and
+    all but 0.1 % of them within PARAM_TOL of the reference's, the
+    tolerances of ``tests/test_torch_train.py``'s train steps."""
+    want = params_from_jax(want_tree, cfg)
+    assert sorted(got) == sorted(want)
+    off = total = 0
+    for n, p in got.items():
+        np.testing.assert_allclose(p.numpy(), want[n].numpy(), **STEP_PARAM_TOL, err_msg=n)
+        d = (p - want[n]).abs()
+        off += int((d > PARAM_TOL["atol"] + PARAM_TOL["rtol"] * want[n].abs()).sum())
+        total += d.numel()
+    assert off <= 1e-3 * total, (off, total)
 
 
 @pytest.mark.parametrize("variant", ["adamw", "adafactor_grad_rs"])
 def test_sharded_train_matches_reference_single_device(variant, dist_results):
+    """Losses and grad norms per step at rtol 2e-4, and the parameters after
+    the steps, against the reference's single device."""
     r = dist_results["train"][variant]
-    np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=2e-4)
+    ref = dist_results["ref"][variant.split("_")[0]]
+    np.testing.assert_allclose(r["losses"], ref["losses"], rtol=2e-4)
+    np.testing.assert_allclose(r["grad_norms"], ref["grad_norms"], rtol=2e-4)
+    _params_close(r["params"], ref["params"], reduced(get_arch("tinyllama-1.1b")))
     assert r["placements_ok"], r["placements"]
     assert r["steps"] == ranks.TRAIN_STEPS
 
@@ -239,6 +312,48 @@ def test_grouped_moe_with_drops_matches_reference(dist_results):
     np.testing.assert_allclose(r["loss_g2"], dist_results["grouped_ref_loss"], rtol=1e-5)
     # and it is not the ungrouped loss: the groups' capacities drop other tokens
     assert r["loss_g2"] != r["loss_g1"]
+
+
+def test_grouped_moe_train_step_matches_reference(dist_results):
+    """dp = 2, g = 2, experts over model, FSDP: every gradient (router and
+    experts included) at GRAD_TOL, then the losses and grad norms of three
+    AdamW steps at rtol 1e-5 and the parameters after them, against the
+    reference's grouped step on a (2, 4) mesh."""
+    r, ref = dist_results["moe_train"], dist_results["grouped_ref"]
+    cfg = reduced(get_arch("deepseek-moe-16b"))
+    assert "Shard(dim=0)" in r["expert_placements"], r["expert_placements"]
+    np.testing.assert_allclose(r["loss"], dist_results["grouped_ref_loss"], rtol=1e-5)
+    want = params_from_jax(_tree(ref, "grads:"), cfg)
+    assert sorted(r["grads"]) == sorted(want)
+    assert any(n.endswith("router") for n in want) and any("experts" in n for n in want)
+    for n, g in r["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[n].numpy(), **GRAD_TOL, err_msg=n)
+    np.testing.assert_allclose(r["losses"], ref["losses"], rtol=1e-5)
+    np.testing.assert_allclose(r["grad_norms"], ref["grad_norms"], rtol=1e-5)
+    _params_close(r["params"], _tree(ref, "params:"), cfg)
+
+
+def test_sharded_mamba_gradients_match_reference(dist_results):
+    """Reduced mamba2-780m on the (2, 2) mesh with SP and FSDP, the mixer on
+    each data rank's rows with its weights whole: the loss at rtol 1e-5 and
+    every gradient at GRAD_TOL against the reference's single device."""
+    r, ref = dist_results["mamba_grads"], dist_results["mamba_ref"]
+    np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
+    want = params_from_jax(ref["grads"], reduced(get_arch("mamba2-780m")))
+    assert sorted(r["grads"]) == sorted(want)
+    for n, g in r["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[n].numpy(), **GRAD_TOL, err_msg=n)
+
+
+def test_sharded_flash_attention_runs_k3_on_blocks(dist_results):
+    """With SP off K3 takes each rank's block (batch over data, heads over
+    model) and gives the unsharded plain path's logits; with SP on, whose
+    sequence split K3 cannot take, it raises rather than falling back."""
+    r = dist_results["flash"]
+    n_attn = reduced(get_arch("tinyllama-1.1b")).n_layers
+    assert r["calls"] == [((2, 16, 2, 16), "Tensor")] * n_attn, r["calls"]
+    np.testing.assert_allclose(r["sharded"], r["plain"], atol=2e-5, rtol=2e-5)
+    assert r["sp_error"] and "Shard(dim=1)" in r["sp_error"]
 
 
 @pytest.mark.parametrize("batch", [4, 1])
