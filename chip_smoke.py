@@ -205,10 +205,30 @@ failed check and then prints no result):
    width, 2 layers, fp32, batch 4 × 512) with ``attn_impl="flash"`` under
    ``ShardingPolicy(mesh, sp=False)``: K3 launched on each rank's block
    (count set to 0 just before, read just after, one per layer), the
-   logits held against the same model's unsharded flash prefill.
+   logits held against the same model's unsharded flash prefill; then the
+   same prefill under ``sp=True``, q's sequence gathered for K3 (again one
+   launch per layer, the logits within 1e-5 of max |logit|).
+19. sharded_ssm (slice 8): mamba2-780m at full width and depth (48
+   layers), fp32, ``ssd_impl="cuda"``, on an NCCL group of one rank under
+   ``ShardingPolicy(make_mesh_dp_tp(1, 1), sp=True)`` (the mixer on the
+   rank's rows and heads, its decode step against the caches in
+   ``cache_spec``'s placements): a prefill of 4 × 512 and 8 greedy
+   ``decode_step``s, without and with the policy from the same weights;
+   K4's launches on the sharded prefill (set to 0 just before, read just
+   after) equal 48; the first layer's K4 call on the sharded prefill held
+   against K4's plain version; the logits within 1e-5 of max |logit| of
+   the unsharded run at every step, the greedy tokens equal; prefill ms,
+   decode ms per step, peak memory.
+20. examples (slice 8): the four ``examples/torch_*.py`` run in this
+   process on the card: serve_batched (K5's launches on deepseek-moe-16b
+   counted: its MoE layers × forward calls), train_100m at its default
+   ~100M size to 60 steps and then resumed to 70 ("resumed from step 60",
+   the loss falling), quickstart's 40 configs all ok, and
+   multi_board_zmq where pyzmq imports (otherwise one line says that it
+   is missing); wall seconds of each.
 
-Standard output ends with a ``kernels`` JSON line (K3's, K5's and the GP
-kernels' entries also carry ``launches_by_path``), the nvidia-smi line and
+Standard output ends with a ``kernels`` JSON line (K3's, K4's, K5's and the
+GP kernels' entries also carry ``launches_by_path``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  ``--only a,b`` builds the kernels and
 runs only the named phases, printing no result.
 """
@@ -1900,6 +1920,11 @@ SHARDED_LOSS_RTOL = 2e-4            # tests/test_sharding.py's tolerance
 SHARDED_PREFILL_LAYERS, SHARDED_PREFILL_BATCH, SHARDED_PREFILL_SEQ = 2, 4, 512
 SHARDED_PREFILL_RTOL = 1e-5         # fp32 logits, over max |logit|
 TRAIN_DEVICE, TRAIN_BACKEND = "cuda", "nccl"
+# sharded_ssm: mamba2-780m at full depth under the policy, prefill then greedy steps
+SHARDED_SSM_BATCH, SHARDED_SSM_SEQ, SHARDED_SSM_STEPS = 4, 512, 8
+SHARDED_SSM_RTOL = 1e-5             # fp32 logits, over max |logit| of the unsharded run
+# examples: train_100m's first run and the run it resumes to
+EXAMPLE_TRAIN_STEPS, EXAMPLE_RESUME_STEPS = 60, 70
 
 
 def _moe_train(cfg, flags, seed, policy, batches):
@@ -1936,9 +1961,8 @@ def phase_train_sharded(seed, tmp):
     its plain version under the policy (loss and router gradients),
     ``psum_int8`` over the one-rank group against the local quantise and
     dequantise (bitwise), and a checkpoint of a DTensor train state (reduced
-    deepseek-moe-16b, for time) written and restored into its placements."""
-    import socket
-
+    deepseek-moe-16b, for time) written and restored into its placements; a
+    llama2-7b flash prefill with SP off and on (``_sharded_flash_prefill``)."""
     import torch
     import torch.distributed as dist
 
@@ -1956,11 +1980,7 @@ def phase_train_sharded(seed, tmp):
     from torch.distributed.tensor import DTensor
 
     t_phase = time.perf_counter()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group(TRAIN_BACKEND, init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
+    _one_rank_group()
     try:
         mesh = make_mesh_dp_tp(1, 1)
         cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
@@ -2051,19 +2071,26 @@ def phase_train_sharded(seed, tmp):
         dist.destroy_process_group()
     emit("train_sharded", phase_seconds=time.perf_counter() - t_phase,
          nvidia_smi=nvidia_smi_line())
-    return {"topk_gating": launches, "flash_attention": k3}
+    return {"topk_gating": launches, "flash_attention": k3[False],
+            "flash_attention_sp": k3[True]}
 
 
 def _sharded_flash_prefill(seed, mesh):
-    """K3 under a sharding policy with SP off (batch over data, heads over
-    model): the prefill's logits against the unsharded flash prefill of the
-    same weights; K3's launches on the sharded prefill."""
+    """K3 under a sharding policy, with SP off (batch over data, heads over
+    model) and with SP on (q's sequence split over model, gathered for
+    K3): each prefill's logits against the unsharded flash prefill of the
+    same weights (which runs K3 too); the first K3 call of each sharded
+    prefill, its operands and output recorded, held against K3's plain
+    version on the same q, k, v (``TOL`` of their dtype, as ``phase_parity``
+    holds it); K3's launches on
+    each sharded prefill, by SP."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import BuildFlags, Model
+    from repro_torch.models import attention
     from repro_torch.parallel.sharding import ShardingPolicy
 
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=SHARDED_PREFILL_LAYERS)
@@ -2071,29 +2098,312 @@ def _sharded_flash_prefill(seed, mesh):
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (SHARDED_PREFILL_BATCH, SHARDED_PREFILL_SEQ))).to(TRAIN_DEVICE)
     sync = torch.cuda.synchronize if TRAIN_DEVICE == "cuda" else (lambda: None)
+    out = {}
     with torch.no_grad():
         want = Model(cfg, flags, device=TRAIN_DEVICE, seed=seed).prefill({"tokens": tokens})[0]
-        policy = ShardingPolicy(mesh, sp=False)
-        model = Model(cfg, flags, device=TRAIN_DEVICE, seed=seed, policy=policy)
-        placed = policy.batch_shardings({"tokens": tokens})
-        sync()
-        fa.flash_attention.launches = 0
-        got = model.prefill(placed)[0]
-        sync()
-        launches = fa.flash_attention.launches
-        # ---- end of the counted run
-        got = got.full_tensor()
-    err = (got - want).abs().max().item()
+        for sp in (False, True):
+            policy = ShardingPolicy(mesh, sp=sp)
+            model = Model(cfg, dataclasses.replace(flags, sp=sp), device=TRAIN_DEVICE,
+                          seed=seed, policy=policy)
+            placed = policy.batch_shardings({"tokens": tokens})
+            first = []
+            real = attention.flash_attention
+
+            def recording(q, k, v, **kw):
+                o = real(q, k, v, **kw)
+                if not first:
+                    first.append(((q.clone(), k.clone(), v.clone()), kw, o.clone()))
+                return o
+            attention.flash_attention = recording
+            try:
+                sync()
+                fa.flash_attention.launches = 0
+                got = model.prefill(placed)[0]
+                sync()
+                launches = fa.flash_attention.launches
+                # ---- end of the counted run
+            finally:
+                attention.flash_attention = real
+            got = got.full_tensor()
+            del model
+            ((q, k, v), kw, o), = first
+            del first
+            tol = TOL[str(q.dtype).removeprefix("torch.")]
+            o_plain = fa.flash_attention_plain(q, k, v, causal=kw["causal"],
+                                               window=kw["window"]).float()
+            k3_err = (o.float() - o_plain).abs().max().item()
+            k3_ok = bool(torch.allclose(o.float(), o_plain, atol=tol, rtol=tol))
+            k3_shape = [list(q.shape), list(k.shape)]
+            del q, k, v, o, o_plain
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            ok = (launches == cfg.n_layers and err <= SHARDED_PREFILL_RTOL * scale
+                  and k3_ok and bool(torch.isfinite(got).all()))
+            emit("train_sharded_flash_prefill", arch=cfg.name, n_layers=cfg.n_layers, sp=sp,
+                 batch=SHARDED_PREFILL_BATCH, seq=SHARDED_PREFILL_SEQ, k3_launches=launches,
+                 k3_call_shapes=k3_shape, k3_vs_plain_max_abs_err=k3_err, k3_tol=tol,
+                 logits_max_abs_err=err, logits_max_abs=scale, rtol=SHARDED_PREFILL_RTOL,
+                 ok=ok)
+            if not ok:
+                raise AssertionError(f"train_sharded: K3 on the sharded prefill (sp={sp}) did "
+                                     "not launch once per layer, disagrees with its plain "
+                                     "version or with the unsharded prefill")
+            out[sp] = launches
+    return out
+
+
+def _one_rank_group():
+    """An NCCL (``TRAIN_BACKEND``) process group of one rank on a free port."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(TRAIN_BACKEND, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
+def _ssm_generate(model, tokens, policy):
+    """A prefill of ``tokens`` and SHARDED_SSM_STEPS greedy decode steps ->
+    (the logits of every step (steps + 1, B, V), the greedy tokens (B,
+    steps + 1), K4's launches on the prefill (set to 0 just before, read
+    just after), prefill ms, decode ms per step).  With a ``policy`` the
+    batch and the caches are placed by it."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.serve.engine import pad_caches
+
+    full = (lambda t: t.full_tensor()) if policy is not None else (lambda t: t)
+    s = tokens.shape[1]
+    with torch.no_grad():
+        batch = policy.batch_shardings({"tokens": tokens}) if policy else {"tokens": tokens}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k4.ssd_scan.launches = 0
+        logits, caches = model.prefill(batch)
+        torch.cuda.synchronize()
+        launches = k4.ssd_scan.launches
+        # ---- end of the counted prefill
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        caches = (policy.place_caches(model, caches, s + SHARDED_SSM_STEPS) if policy
+                  else pad_caches(caches, s, s + SHARDED_SSM_STEPS))
+        steps = [full(logits)]
+        toks = [steps[-1].argmax(-1)]
+        t0 = time.perf_counter()
+        for pos in range(s, s + SHARDED_SSM_STEPS):
+            tok = toks[-1][:, None]
+            if policy is not None:
+                tok = policy.batch_shardings({"t": tok})["t"]
+            logits, caches = model.decode_step(tok, caches, pos)
+            steps.append(full(logits))
+            toks.append(steps[-1].argmax(-1))
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / SHARDED_SSM_STEPS
+    return torch.stack(steps), torch.stack(toks, dim=1), launches, prefill_ms, decode_ms
+
+
+def phase_sharded_ssm(seed):
+    """mamba2-780m at full width and depth (48 layers), fp32, with
+    ``ssd_impl="cuda"``, under ``ShardingPolicy(make_mesh_dp_tp(1, 1),
+    sp=True)`` on an NCCL group of one rank (the Mamba-2 mixer on the
+    rank's rows and heads, ``mamba2.mamba_block_sharded``; its decode step
+    against the caches in ``cache_spec``'s placements): a prefill of
+    SHARDED_SSM_BATCH x SHARDED_SSM_SEQ and SHARDED_SSM_STEPS greedy decode
+    steps, once without the policy and once with it, from the same
+    weights.  K4's launches on the sharded prefill must equal the 48
+    layers; the first layer's K4 call on the sharded prefill is held
+    against K4's plain version (``SSD_TOL``); the logits of every step
+    within SHARDED_SSM_RTOL of max |logit| of the unsharded run, and the
+    greedy tokens equal."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch.mesh import make_mesh_dp_tp
+    from repro_torch.models import BuildFlags, Model
+    from repro_torch.models import mamba2
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(SSM_ARCH)
+    flags = BuildFlags(dtype="float32", ssd_impl="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SHARDED_SSM_BATCH, SHARDED_SSM_SEQ))).to("cuda")
+    model = Model(cfg, flags, device="cuda", seed=seed)
+    want, want_toks, plain_launches, plain_pre, plain_dec = _ssm_generate(model, tokens, None)
+    del model
+    torch.cuda.empty_cache()
+    _one_rank_group()
+    try:
+        policy = ShardingPolicy(make_mesh_dp_tp(1, 1), sp=True)
+        model = Model(cfg, flags, device="cuda", seed=seed, policy=policy)
+        torch.cuda.reset_peak_memory_stats()
+        first = []
+        real = mamba2.ssd_scan
+
+        def recording(*args, **kw):
+            out = real(*args, **kw)
+            if not first:
+                first.append(([a.clone() for a in args], kw, [o.clone() for o in out]))
+            return out
+        mamba2.ssd_scan = recording
+        try:
+            got, got_toks, launches, pre_ms, dec_ms = _ssm_generate(model, tokens, policy)
+        finally:
+            mamba2.ssd_scan = real
+        peak = torch.cuda.max_memory_allocated()
+        del model
+        (args, kw, (y, state)), = first
+        y_plain, state_plain = k4.ssd_scan_plain(
+            *args, chunk=k4.clamp_chunk(kw["chunk"], args[0].shape[1]))
+        k4_err = max((y - y_plain).abs().max().item(),
+                     (state - state_plain).abs().max().item())
+        k4_shape = list(y.shape)
+        del first, args, y, state, y_plain, state_plain
+    finally:
+        dist.destroy_process_group()
+    err = (got - want).abs().amax(dim=(1, 2)).tolist()
     scale = want.abs().max().item()
-    ok = (launches == cfg.n_layers and err <= SHARDED_PREFILL_RTOL * scale
-          and bool(torch.isfinite(got).all()))
-    emit("train_sharded_flash_prefill", arch=cfg.name, n_layers=cfg.n_layers,
-         batch=SHARDED_PREFILL_BATCH, seq=SHARDED_PREFILL_SEQ, k3_launches=launches,
-         logits_max_abs_err=err, logits_max_abs=scale, rtol=SHARDED_PREFILL_RTOL, ok=ok)
+    same_tokens = bool(torch.equal(got_toks, want_toks))
+    ok = (launches == cfg.n_layers and k4_err <= SSD_TOL and same_tokens
+          and max(err) <= SHARDED_SSM_RTOL * scale and bool(torch.isfinite(got).all()))
+    emit("sharded_ssm", arch=cfg.name, n_layers=cfg.n_layers, batch=SHARDED_SSM_BATCH,
+         seq=SHARDED_SSM_SEQ, decode_steps=SHARDED_SSM_STEPS, k4_launches=launches,
+         k4_launches_unsharded=plain_launches, k4_call_shape=k4_shape,
+         k4_vs_plain_max_abs_err=k4_err, k4_tol=SSD_TOL,
+         logits_max_abs_err_per_step=err, logits_max_abs=scale, rtol=SHARDED_SSM_RTOL,
+         greedy_tokens_equal=same_tokens, prefill_ms_sharded=pre_ms,
+         prefill_ms_plain=plain_pre, decode_ms_per_step_sharded=dec_ms,
+         decode_ms_per_step_plain=plain_dec, max_memory_allocated_sharded=peak,
+         phase_seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line(), ok=ok)
     if not ok:
-        raise AssertionError("train_sharded: K3 on the sharded prefill did not launch once "
-                             "per layer or disagrees with the unsharded prefill")
+        raise AssertionError("sharded_ssm: K4's launches, K4 against its plain version, the "
+                             "logits or the greedy tokens of the sharded run are off")
     return launches
+
+
+def _example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(REPO, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(tmp):
+    """The four examples' ``main`` in this process on the card:
+    serve_batched (K5's launches, set to 0 just before and read just after,
+    equal deepseek-moe-16b's MoE layers x its forward calls; K5's first call
+    there, its logits and output recorded, held against K5's plain version:
+    ids equal, probabilities within TOPK_P_TOL); train_100m at
+    its default size, EXAMPLE_TRAIN_STEPS steps and then a second run to
+    EXAMPLE_RESUME_STEPS that must print "resumed from step ...", the loss
+    falling; quickstart's 40 configs, every record ok; and multi_board_zmq
+    where pyzmq imports (else one line says it is missing)."""
+    import importlib.util
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.models import moe as moe_mod
+
+    t_phase = time.perf_counter()
+    serve = _example("serve_batched")
+    first = []
+    real = moe_mod.topk_gating
+
+    def recording(logits, k):
+        p, ids = real(logits, k)
+        if not first:
+            first.append((logits.clone(), k, p.clone(), ids.clone()))
+        return p, ids
+    moe_mod.topk_gating = recording
+    try:
+        k5.topk_gating.launches = 0
+        t0 = time.perf_counter()
+        served = serve.main(["--device", "cuda"])
+        k5_launches = k5.topk_gating.launches
+        # ---- end of the counted run
+    finally:
+        moe_mod.topk_gating = real
+    serve_s = time.perf_counter() - t0
+    (logits, k, p, ids), = first
+    want_p, want_ids = k5.topk_gating_plain(logits, k)
+    ids_equal = bool(torch.equal(ids, want_ids))
+    p_err = (p - want_p).abs().max().item()
+    moe = reduced(get_arch("deepseek-moe-16b"))
+    want = sum(s.ffn == "moe" for s in moe.layer_specs()) * serve.GEN
+    emit("examples_serve_batched", seconds=serve_s, k5_launches=k5_launches, k5_expected=want,
+         k5_call_shape=list(logits.shape), k5_ids_equal_plain=ids_equal,
+         k5_vs_plain_max_abs_p_err=p_err, k5_tol=TOPK_P_TOL,
+         tok_s={n: serve.BATCH * serve.GEN / dt for n, (_, dt) in served.items()})
+    del first, logits, p, ids, want_p, want_ids
+    if k5_launches != want or not ids_equal or p_err > TOPK_P_TOL:
+        raise AssertionError(f"examples: serve_batched launched K5 {k5_launches} times "
+                             f"(want {want}), or its first call disagrees with the plain "
+                             "version")
+
+    train = _example("train_100m")
+    ck = os.path.join(tmp, "train_100m")
+    t0 = time.perf_counter()
+    first = train.main(["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", ck, "--device", "cuda"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        second = train.main(["--steps", str(EXAMPLE_RESUME_STEPS), "--ckpt", ck,
+                             "--device", "cuda"])
+    print(buf.getvalue(), end="", flush=True)
+    train_s = time.perf_counter() - t0
+    resumed = f"resumed from step {EXAMPLE_TRAIN_STEPS}" in buf.getvalue()
+    falling = first[-1] < first[0] and second[-1] < first[0]
+    emit("examples_train_100m", seconds=train_s, steps=[len(first), len(second)],
+         loss_first=first[0], loss_at_first_run_end=first[-1], loss_last=second[-1],
+         resumed=resumed, loss_falling=falling)
+    if not (resumed and falling and len(second) == EXAMPLE_RESUME_STEPS - EXAMPLE_TRAIN_STEPS):
+        raise AssertionError("examples: train_100m did not resume or its loss did not fall")
+
+    t0 = time.perf_counter()
+    host = _example("quickstart").main(["--device", "cuda"])
+    recs = host.store.records
+    ok = len(recs) == 40 and all(r.status == "ok" for r in recs)
+    emit("examples_quickstart", seconds=time.perf_counter() - t0, records=len(recs),
+         all_ok=ok)
+    if not ok:
+        raise AssertionError("examples: quickstart's records are not all ok")
+
+    if importlib.util.find_spec("zmq") is None:
+        emit("examples_multi_board_zmq", note="pyzmq is missing on this machine; the example "
+             "did not run (tests/test_torch_examples.py holds it on the CPU)")
+    else:
+        import socket
+
+        socks = [socket.socket() for _ in range(3)]
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        res, a, b = [sock.getsockname()[1] for sock in socks]
+        for sock in socks:
+            sock.close()
+        t0 = time.perf_counter()
+        host = _example("multi_board_zmq").main(["--device", "cuda", "--cfg-ports",
+                                                 f"{a},{b}", "--res-port", str(res)])
+        recs = host.store.records
+        ok = len(recs) == 48 and all(r.status == "ok" for r in recs)
+        emit("examples_multi_board_zmq", seconds=time.perf_counter() - t0,
+             records=len(recs), all_ok=ok)
+        if not ok:
+            raise AssertionError("examples: multi_board_zmq's records are not all ok")
+    emit("examples", phase_seconds=time.perf_counter() - t_phase,
+         nvidia_smi=nvidia_smi_line())
+    return k5_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3291,6 +3601,8 @@ def run_only(names):
         "explore_llava": lambda: phase_explore_llava(tempfile.mkdtemp(prefix="llava")),
         "explore_train": lambda: phase_explore_train(tempfile.mkdtemp(prefix="xtrain")),
         "train_sharded": lambda: phase_train_sharded(SEED, tempfile.mkdtemp(prefix="shard")),
+        "sharded_ssm": lambda: phase_sharded_ssm(SEED),
+        "examples": lambda: phase_examples(tempfile.mkdtemp(prefix="examples")),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -3352,17 +3664,23 @@ def main(only=None):
         train_launches = phase_train_main(tmp)
         train_gp = phase_explore_train(tmp)
         sharded = phase_train_sharded(SEED, tmp)
+        sharded_ssm = phase_sharded_ssm(SEED)
+        examples_k5 = phase_examples(tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
     paths = {"flash_attention": {ARCH: launches["flash_attention"],
                                  MOE_ARCH: moe_launches["flash_attention"], **frontend_launches,
                                  f"{ARCH} sharded prefill ({SHARDED_PREFILL_LAYERS} layers)":
-                                     sharded["flash_attention"]},
+                                     sharded["flash_attention"],
+                                 f"{ARCH} sharded prefill (sp)": sharded["flash_attention_sp"]},
+             "ssd_scan": {f"{SSM_ARCH} serving": ssm_launches["ssd_scan"],
+                          f"{SSM_ARCH} sharded prefill (sp)": sharded_ssm},
              "topk_gating": {f"{MOE_ARCH} serving": moe_launches["topk_gating"],
                              f"{MOE_ARCH} training ({MOE_TRAIN_LAYERS} layers)":
                                  train_launches["topk_gating"],
                              f"{MOE_ARCH} sharded training ({MOE_TRAIN_LAYERS} layers, "
-                             f"{SHARDED_STEPS} steps)": sharded["topk_gating"]}}
+                             f"{SHARDED_STEPS} steps)": sharded["topk_gating"],
+                             "examples serve_batched": examples_k5}}
     for name in ("gp_w", "gp_g", "gp_ehvi"):
         paths[name] = {f"explore_train {strategy}": train_gp[strategy][name]
                        for strategy in train_gp}

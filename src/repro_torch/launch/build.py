@@ -91,13 +91,35 @@ shape-only ``(data, model)`` mesh of dp × tp, ``flags.fsdp``):
     buffer (C the capacity of B·S/g tokens, g = ``moe_groups``), and with
     ``sp`` take their rows whole over model first, one more all-gather plus
     reduce-scatter of X per pass;
+  - a Mamba-2 mixer whose heads the model axis splits (tp divides H;
+    ``models.mamba2.mamba_block_sharded``), besides its reduction of X
+    above: B and C's weights (``wb``, ``wc`` (D, N), ``conv_b``, ``conv_c``
+    (N, K)), W bytes in all, gathered over model in the forward pass and
+    again with remat, W·(tp−1)/tp each, and their gradients reduced in the
+    backward pass (a reduce-scatter, W·(tp−1)/tp, where tp divides N; an
+    all-reduce, 2·W·(tp−1)/tp, where the rules leave them whole);
+    ``out_proj`` taken from its columns' split to its rows' where tp
+    divides D (an all-to-all, O·(tp−1)/tp, O = d_inner·D/tp bytes) in the
+    same passes as the gather and back for its gradient; the gated norm's sum of squares,
+    an fp32 all-reduce of B·S/dp values in every pass.  The per-head
+    vectors' gathers (``A_log``, ``D``, ``dt_bias``, the biases and norm
+    scales, under d_inner values each) are not counted.  Where tp does not
+    divide H every rank runs the whole mixer: no reduction of X, its
+    weights that the rules split over model gathered in the forward pass
+    and again with remat, P_m·(tp−1)/tp each, and with ``sp`` the input's
+    sequence gathered in those passes and the output's gradient in the
+    backward pass, X·(tp−1)/tp each;
   - the vocabulary split over model (where tp divides V): the embedding
     lookup's sum over the vocabulary shares, an all-reduce 2·X·(tp−1)/tp,
     or with ``sp`` a reduce-scatter and, for its gradient, an all-gather,
-    X·(tp−1)/tp each; the cross entropy's max, sum of exponentials and gold
-    logit, three fp32 all-reduces of B·S/dp values.
-    Not counted: the head's input gather under ``sp`` and the recompute of
-    ``loss_chunks``.
+    X·(tp−1)/tp each; the head's input, gathered over the sequence with
+    ``sp`` (an all-gather, X·(tp−1)/tp, and a reduce-scatter of its
+    gradient) and otherwise whole, its gradient summed over the
+    vocabulary shares (an all-reduce, 2·X·(tp−1)/tp); the cross entropy's
+    max, sum of exponentials and gold logit, three fp32 all-reduces of
+    B·S/dp values.  With ``loss_chunks`` > 1 the backward pass recomputes
+    each chunk's logits: the head's gather under ``sp`` and the cross
+    entropy's three all-reduces once more.
 
 ``meta["one_device_bytes"]`` is what the whole cell holds on one device,
 unsharded: the weights (a train cell's whole state, updated in place), the
@@ -277,8 +299,10 @@ def train_collective_bytes(arch: ArchConfig, shape: ShapeConfig, flags: BuildFla
         x = tokens * arch.d_model * itemsize
         specs = arch.layer_specs()
         n_moe = sum(s.ffn == "moe" for s in specs)
+        n_mamba = sum(s.mixer == "mamba" for s in specs)
+        whole_mamba = n_mamba if arch.n_ssm_heads % tp else 0
         n_red = sum(1 + (s.ffn == "dense") for s in specs) + (
-            n_moe if arch.n_shared_experts else 0)
+            n_moe if arch.n_shared_experts else 0) - whole_mamba
         passes = 2 + (flags.remat != "none")
         if flags.sp:
             n_red += n_moe                  # the MoE's rows taken whole over model
@@ -292,13 +316,34 @@ def train_collective_bytes(arch: ArchConfig, shape: ShapeConfig, flags: BuildFla
             g = mesh_policy(dp, tp, flags).moe_groups(b)
             y = arch.n_experts * expert_capacity(b * shape.seq_len // g, arch) * arch.d_model
             add("all-gather", passes * n_moe * y * itemsize * f)
-        if arch.vocab_size % tp == 0:
+        fwd = passes - 1                      # the forward pass, and its recompute
+        if whole_mamba:
+            d, di, n, k = arch.d_model, arch.d_inner, arch.ssm_state, arch.ssm_conv
+            split = [(d * di, di), (d * di, di), (d * n, n), (d * n, n), (di * k, di),
+                     (n * k, n), (n * k, n), (di * d, d)]
+            w = sum(size for size, dim in split if dim % tp == 0) * itemsize
+            add("all-gather", fwd * whole_mamba * w * f)
             if flags.sp:
-                add("reduce-scatter", x * f)
-                add("all-gather", x * f)
+                add("all-gather", passes * whole_mamba * x * f)
+        elif n_mamba:
+            w = 2 * (arch.d_model + arch.ssm_conv) * arch.ssm_state * itemsize
+            o = arch.d_inner * arch.d_model / tp * itemsize
+            add("all-gather", fwd * n_mamba * w * f)
+            if arch.ssm_state % tp == 0:
+                add("reduce-scatter", n_mamba * w * f)
             else:
-                add("all-reduce", 2 * x * f)
-            add("all-reduce", 3 * 2 * tokens * 4 * f)
+                add("all-reduce", n_mamba * 2 * w * f)
+            if arch.d_model % tp == 0:
+                add("all-to-all", passes * n_mamba * o * f)
+            add("all-reduce", passes * n_mamba * 2 * tokens * 4 * f)
+        if arch.vocab_size % tp == 0:
+            head = 1 + (flags.loss_chunks > 1)   # the forward pass, and its recompute
+            if flags.sp:
+                add("reduce-scatter", 2 * x * f)
+                add("all-gather", (1 + head) * x * f)
+            else:
+                add("all-reduce", 2 * 2 * x * f)
+            add("all-reduce", head * 3 * 2 * tokens * 4 * f)
     return out
 
 

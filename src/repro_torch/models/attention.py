@@ -15,11 +15,11 @@ the engine donates the old one); it returns the same dict.
 Under a sharding policy (``parallel.sharding``) the inputs are DTensors:
 ``full_attention`` moves q, k and v to the reference's placements
 (``constrain_attn_q``/``constrain_attn_kv``) and runs the plain grouped
-path on them, or, with ``impl="flash"``, K3 on each rank's block where
-whole sequences and head groups sit on a rank (a hand-written kernel has
-no DTensor rule) and an error elsewhere; ``decode_attention`` writes the
-new token into the shard of a sequence-sharded cache that holds its
-position.
+path on them, or, with ``impl="flash"``, K3 on each rank's block
+(``_flash_blocks``: a hand-written kernel has no DTensor rule), under SP
+with q's sequence gathered and beside whole kv heads with each rank's kv
+heads sliced; ``decode_attention`` writes the new token into the shard of
+a sequence-sharded cache that holds its position.
 """
 from __future__ import annotations
 
@@ -111,24 +111,52 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
 
 def _flash_blocks(q, k, v, **kw):
     """K3 on each rank's block of the DTensors q (B, S, H, dh), k, v (B, S,
-    Hkv, dh).  Exact where every rank holds whole sequences and whole GQA
-    groups: on each mesh dimension q and k/v are both replicated, both split
-    by batch, or both split by heads (the reference's placement with SP off
-    and the head counts divisible).  Any other placement (a sequence split
-    over ranks, as SP gives, or the kv heads left whole beside split q
-    heads) raises."""
+    Hkv, dh), under every placement the reference's rules give (a
+    hand-written kernel has no DTensor rule; the reference's compiled
+    program runs its kernel on gathered operands the same way):
+
+    * a sequence split (``constrain_attn_q`` under SP, beside k/v whole over
+      model): q's sequence is gathered, K3 runs on the rank's rows (batch
+      over data) and all heads, and the output goes back to q's sequence
+      shards.  Each rank computes every row of its sequences (a K3 that
+      took a query-row offset would compute only its own);
+    * q heads split beside kv heads whole (the kv heads not divisible, as
+      glm4-9b's 2 under tp = 4): each rank takes the kv heads its q heads
+      use (q head h uses kv head h // rep) and runs K3 at the local GQA
+      ratio;
+    * the batch over data, and both head counts split over model: each
+      rank's block as it is.
+    """
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    ok = (Replicate(), Shard(0), Shard(2))
-    for qp, kp, vp in zip(q.placements, k.placements, v.placements):
-        if not (qp == kp == vp and qp in ok):
-            raise NotImplementedError(
-                f"flash attention (K3) on q placed {tuple(q.placements)} and k/v placed "
-                f"{tuple(k.placements)}/{tuple(v.placements)}: K3 runs on each rank's block "
-                "only where whole sequences and whole head groups sit on one rank; "
-                "use attn_impl='xla' or a policy with sp=False")
-    o = flash_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
-    return DTensor.from_local(o, q.device_mesh, q.placements, run_check=False)
+    mesh = q.device_mesh
+    want_q = tuple(Replicate() if pl == Shard(1) else pl for pl in q.placements)
+    if any(pl not in (Replicate(), Shard(0), Shard(2)) for pl in want_q):
+        raise ValueError(f"flash attention (K3) on q placed {tuple(q.placements)}")
+    # k/v follow q's batch split; their heads stay split only beside q's
+    want_kv = tuple(qp if qp != Shard(2) or kp == Shard(2) else Replicate()
+                    for qp, kp in zip(want_q, k.placements))
+    ql = q.redistribute(mesh, want_q).to_local()
+    kl = k.redistribute(mesh, want_kv).to_local()
+    vl = v.redistribute(mesh, want_kv).to_local()
+    if any(qp == Shard(2) and kp != Shard(2) for qp, kp in zip(want_q, want_kv)):
+        kl, vl = _kv_for_heads(q, ql.shape[2], k.shape[2], kl, vl)
+    o = flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(), **kw)
+    return DTensor.from_local(o, mesh, want_q, run_check=False).redistribute(
+        mesh, q.placements)
+
+
+def _kv_for_heads(q, h_local, hkv, k, v):
+    """The kv heads (whole on this rank) that this rank's ``h_local`` q
+    heads of the DTensor ``q`` use: one kv head where the q heads lie in
+    one GQA group, else whole groups of them."""
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    rep = q.shape[2] // hkv
+    if rep % h_local and h_local % rep:
+        raise ValueError(f"{h_local} q heads a rank do not fall evenly on GQA groups of {rep}")
+    lo, n = ShardingPolicy.share_of(q, 2)[0] // rep, max(1, h_local // rep)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
 
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
@@ -177,15 +205,14 @@ def _write_sharded(cache, pos, new):
     DTensor ``cache`` (B, S, Hkv, dh): on the rank whose shard holds it, in
     the shard's own storage."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.parallel.sharding import ShardingPolicy
 
     want = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
             for pl in cache.placements]
     new_local = new.redistribute(cache.device_mesh, want).to_local()
-    shape, offset = compute_local_shape_and_global_offset(cache.shape, cache.device_mesh,
-                                                          cache.placements)
-    lo = offset[1]
-    if lo <= pos < lo + shape[1]:
+    lo, n = ShardingPolicy.share_of(cache, 1)
+    if lo <= pos < lo + n:
         cache.to_local()[:, pos - lo] = new_local[:, 0].to(cache.dtype)
 
 

@@ -28,8 +28,14 @@ Under a sharding policy (``parallel.sharding``; the parameters and inputs
 are DTensors) the residual stream is moved to the reference's placements
 after each mixer and each FFN (``constrain_residual``, the reference's
 ``transformer.py:64-73``).  The Mamba-2 mixer, whose work is per sequence,
-runs on each rank's rows with its weights gathered (``_mamba_rows``), so
-its plain path or K4 sees plain local tensors.
+runs on each rank's rows and, where the model axis divides its heads, on
+that rank's heads, with the weights in the reference's placements
+(``mamba2.mamba_block_sharded``): its plain path or K4 sees plain local
+tensors of H/tp heads, and its output is summed over model.  Its decode
+step (``mamba2.mamba_decode_sharded``) runs the same way against the
+cache in ``cache_spec``'s placements; the attention layers' K3 takes each
+rank's block under every placement the rules give
+(``attention._flash_blocks``).
 """
 from __future__ import annotations
 
@@ -89,15 +95,16 @@ class Layer(nn.Module):
             x = policy.constrain_residual(x)
         return x, aux
 
-    def full(self, x, flags, want_aux=False, policy=None):
-        """Full-seq layer.  Returns (x, aux | None, cache)."""
+    def full(self, x, flags, want_aux=False, policy=None, want_cache=True):
+        """Full-seq layer.  Returns (x, aux | None, cache | None)."""
         if self.is_attn:
             h, cache = attention.full_attention(
                 self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
                 attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv,
                 policy=policy)
         elif policy is not None and is_distributed(x):
-            h, cache = _mamba_rows(policy, self.mixer, x, self.cfg, flags.ssd_impl)
+            h, cache = mamba2.mamba_block_sharded(policy, self.mixer, x, self.cfg,
+                                                  flags.ssd_impl, want_cache)
         else:
             h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
         x = x + h
@@ -111,21 +118,11 @@ class Layer(nn.Module):
             h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
                                                   window=self.window)
         elif is_distributed(x):
-            raise NotImplementedError("a Mamba-2 decode step under a sharding policy")
+            h, cache = mamba2.mamba_decode_sharded(policy, self.mixer, x, cache, self.cfg)
         else:
             h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
         # the reference's decode MoE takes one dispatch group (policy None there)
         return self._ffn(x + h, policy=policy, grouped=False)[0], cache
-
-
-def _mamba_rows(policy, mixer, x, cfg, impl):
-    """The Mamba-2 mixer on this rank's rows of the DTensor ``x`` (split
-    over the data axes when they divide the batch), weights gathered."""
-    split = policy.row_split(x.shape[0])
-    h, cache = mamba2.mamba_block(policy.gathered_params(mixer, split),
-                                  policy.local_rows(x, split), cfg, impl=impl)
-    return (policy.from_rows(h, split, x),
-            {k: policy.from_rows(t, split, x) for k, t in cache.items()})
 
 
 def _group_layout(cfg: ArchConfig):
@@ -178,7 +175,7 @@ def _save_products(ctx, op, *args, **kwargs):
 def _train_layer(layer, flags, x, policy=None):
     # under the policy's context also when remat recomputes it in a backward pass
     with maybe_context(policy):
-        x, aux, _ = layer.full(x, flags, want_aux=True, policy=policy)
+        x, aux, _ = layer.full(x, flags, want_aux=True, policy=policy, want_cache=False)
     return x, aux
 
 

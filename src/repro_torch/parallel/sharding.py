@@ -26,14 +26,17 @@ unchanged, so a model without DTensor inputs runs as before.
 Row-local regions (the MoE dispatch and the Mamba-2 mixer, whose work is
 per sequence) run on plain local tensors: ``local_rows`` takes this rank's
 rows (its group when the rows are split over the data axes) and
-``from_rows`` wraps the local result again, so the kernels (K5, K4) see
-plain tensors on the rank's device.  The MoE's expert products take the
-reference's expert-buffer placement (groups over data, experts over
-model): ``expert_block`` gives a rank its experts' rows of its group's
-buffer, ``expert_weights`` those experts' weights, and ``expert_gather``
-brings the outputs of every expert back.  The Mamba-2 mixer takes its
-weights whole (``gathered``), their gradients summed over the data axes
-that split the rows.  The embedding lookup and the cross entropy keep the
+``from_rows`` (or ``reduced_rows``) wraps the local result again, so the
+kernels (K5, K4) see plain tensors on the rank's device.  The MoE's expert
+products take the reference's expert-buffer placement (groups over data,
+experts over model): ``expert_block`` gives a rank its experts' rows of its
+group's buffer, ``expert_weights`` those experts' weights, and
+``expert_gather`` brings the outputs of every expert back.  The Mamba-2 mixer takes its
+heads' share of its weights over model where the axis divides the heads
+(``head_split``, ``head_shares``), sums its gated norm's squares over
+model (``model_all_reduce``) and its partial outputs into the residual's
+placement (``reduced_rows``); a decode step's caches come from prefill by
+``place_caches``.  The embedding lookup and the cross entropy keep the
 vocabulary split over model (``vocab_lookup``, ``vocab_ce``).
 """
 from __future__ import annotations
@@ -41,6 +44,9 @@ from __future__ import annotations
 import contextlib
 import re
 from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import MeshShape, axes_of
 
@@ -248,6 +254,37 @@ class ShardingPolicy:
                  for k, t in cache.items()}
                 for prefix, cache in zip(prefixes, caches)]
 
+    def place_caches(self, model, caches, max_len: int):
+        """Prefill's caches (DTensors) as a decode step takes them: the
+        attention K/V grown to ``max_len`` positions (zero-filled, as
+        ``serve.engine.pad_caches``) and every leaf moved to ``cache_spec``'s
+        placements at the reference's cache paths.  Raises ``ValueError``
+        where ``max_len`` is shorter than the prompt, as ``pad_caches`` does
+        (padding by a negative amount would crop the K/V)."""
+        import torch.nn.functional as F
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from repro_torch.models.convert import layer_prefixes
+
+        def padded(t):
+            if max_len < t.shape[1]:
+                raise ValueError(f"a {t.shape[1]}-position prompt does not fit a "
+                                 f"{max_len}-slot cache")
+            whole = tuple(Replicate() if pl == Shard(1) else pl for pl in t.placements)
+            local = t.redistribute(t.device_mesh, whole).to_local()
+            local = F.pad(local, (0, 0, 0, 0, 0, max_len - t.shape[1]))
+            return DTensor.from_local(local, t.device_mesh, whole, run_check=False)
+        out = []
+        for prefix, cache in zip(layer_prefixes(model.cfg), caches):
+            layer = {}
+            for key, t in cache.items():
+                if key in ("k", "v"):
+                    t = padded(t)
+                layer[key] = self.redistribute(
+                    t, self.cache_spec(f"{prefix}/{key}", tuple(t.shape)))
+            out.append(layer)
+        return out
+
     def batch_shardings(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         return {k: self.distribute(t, self.batch_spec(tuple(t.shape)))
                 for k, t in batch.items()}
@@ -276,10 +313,7 @@ class ShardingPolicy:
         """(B, S, D) residual stream: batch over data; seq over model if SP."""
         if x.ndim != 3:
             return x
-        b, s, _ = x.shape
-        bspec = self._fits(b, self.dp)
-        sspec = self._fits(s, self.tp_axis) if (self.sp and s > 1) else None
-        return self.redistribute(x, (bspec, sspec, None))
+        return self.redistribute(x, self.residual_spec(tuple(x.shape)))
 
     def constrain_attn_q(self, q):
         """(B, S, H, dh): seq-sharded over model with SP (K/V stay gathered);
@@ -371,8 +405,10 @@ class ShardingPolicy:
                      for a in self.axis_names)
 
     @staticmethod
-    def _share(t, dim: int):
-        """(offset, size) of this rank's share of dimension ``dim`` of the DTensor ``t``."""
+    def share_of(t, dim: int):
+        """(offset, size) of this rank's share of dimension ``dim`` of the
+        DTensor ``t``.  The one caller of torch's private
+        ``compute_local_shape_and_global_offset`` in the port."""
         from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
         shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
@@ -405,7 +441,7 @@ class ShardingPolicy:
         grad = [Partial() if (split and a in self.dp_axes) else pl
                 for a, pl in zip(self.axis_names, keep)]
         share = table.redistribute(table.device_mesh, keep)
-        off, n = self._share(share, 0)
+        off, n = self.share_of(share, 0)
         local = share.to_local(grad_placements=grad)
         ids = self.local_rows(tokens, split) - off
         inside = (ids >= 0) & (ids < n)
@@ -429,7 +465,7 @@ class ShardingPolicy:
                               (self._fits(b, self.dp), None, None))
         lz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
         share = logits.redistribute(mesh, self._vocab_placements(v, 2, split))
-        off, n = self._share(share, 2)
+        off, n = self.share_of(share, 2)
         lab = self.local_rows(labels, split) - off
         inside = (lab >= 0) & (lab < n)
         gold = torch.gather(share.to_local(), -1, lab.clamp(0, n - 1)[..., None])[..., 0]
@@ -442,46 +478,137 @@ class ShardingPolicy:
         return tuple(Shard(0) if (split and a in self.dp_axes) else Replicate()
                      for a in self.axis_names)
 
-    def local_rows(self, x, split: bool):
+    def local_rows(self, x, split: bool, partial: bool = False):
         """This rank's rows of the DTensor ``x`` as a plain tensor: its share
-        of the batch split over the data axes (``split``), else all rows."""
-        return x.redistribute(x.device_mesh, self._rows(split)).to_local()
+        of the batch split over the data axes (``split``), else all rows,
+        whole over model.  With ``partial`` each model rank's gradient is its
+        own part of the whole (the rank used the rows for its heads only),
+        and the parts are summed over model."""
+        from torch.distributed.tensor import Partial
 
-    def gathered(self, w, split: bool):
-        """The full weight of the DTensor ``w`` as a plain tensor.  Its
-        gradient is summed over the data axes when the rows are ``split``
-        (each rank saw other rows) and taken as it is elsewhere (the ranks
+        rows = self._rows(split)
+        grad = ([Partial() if a == self.tp_axis else pl for a, pl in zip(self.axis_names, rows)]
+                if partial else None)
+        return x.redistribute(x.device_mesh, rows).to_local(grad_placements=grad)
+
+    def from_rows(self, t, split: bool, like, dim: Optional[int] = None,
+                  spec: Optional[Spec] = None):
+        """A local result ``t`` over this rank's rows (``local_rows``), and over
+        model its share of dimension ``dim`` (whole when ``dim`` is None), as
+        a DTensor on ``like``'s mesh: in ``spec``'s placements where one is
+        given, else as it lies."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh = like.device_mesh
+        placed = tuple(Shard(dim) if (dim is not None and a == self.tp_axis) else pl
+                       for a, pl in zip(self.axis_names, self._rows(split)))
+        dt = DTensor.from_local(t, mesh, placed, run_check=False)
+        return dt if spec is None else dt.redistribute(mesh, self.placements(spec))
+
+    # -- the Mamba-2 mixer on each rank's heads --------------------------------------------
+    def head_split(self, n_heads: int) -> int:
+        """How many ways the Mamba-2 mixer's heads split over model: the
+        model axis's size where it divides ``n_heads``, else 1 (every model
+        rank runs all heads)."""
+        tp = self._axis_size(self.tp_axis)
+        return tp if (tp > 1 and n_heads % tp == 0) else 1
+
+    def head_shares(self, module, dims: Dict[str, int], split: bool, heads: int):
+        """A namespace shaped like ``module`` holding, for each parameter, the
+        plain tensor this rank computes with: its share over model of the
+        dimension ``dims`` names for it (by its dotted name) when ``heads``
+        > 1, whole elsewhere; whole over the data axes (FSDP's gather).
+        Gradients: summed over the data axes when the rows are ``split``;
+        over model, a share's gradient is the rank's own, and a whole
+        weight's is summed over the ranks when they split the heads (each
+        used it for its own heads) and taken as it is when they do not (each
         computed the same)."""
-        from torch.distributed.tensor import Partial, Replicate
-
-        grad = [Partial() if (split and a in self.dp_axes) else Replicate()
-                for a in self.axis_names]
-        full = w.redistribute(w.device_mesh, [Replicate()] * len(self.axis_names))
-        return full.to_local(grad_placements=grad)
-
-    def gathered_params(self, module, split: bool):
-        """A namespace shaped like ``module`` (its parameters and submodules
-        by attribute) holding each parameter ``gathered``."""
         import types
 
-        ns = types.SimpleNamespace()
-        for name, p in module._parameters.items():
-            setattr(ns, name, self.gathered(p, split))
-        for name, m in module._modules.items():
-            setattr(ns, name, self.gathered_params(m, split))
-        return ns
+        from torch.distributed.tensor import Partial, Replicate, Shard
 
-    def from_rows(self, t, split: bool, like):
-        """A local result over this rank's rows (``local_rows``) as a DTensor
-        on ``like``'s mesh."""
-        from torch.distributed.tensor import DTensor
+        def share(w, dim):
+            keep = [Shard(dim) if (dim is not None and a == self.tp_axis) else Replicate()
+                    for a in self.axis_names]
+            grad = [Partial() if ((split and a in self.dp_axes)
+                                  or (heads > 1 and dim is None and a == self.tp_axis))
+                    else pl for a, pl in zip(self.axis_names, keep)]
+            return w.redistribute(w.device_mesh, keep).to_local(grad_placements=grad)
 
-        return DTensor.from_local(t, like.device_mesh, self._rows(split), run_check=False)
+        def walk(mod, prefix):
+            ns = types.SimpleNamespace()
+            for name, p in mod._parameters.items():
+                setattr(ns, name, share(p, dims.get(prefix + name) if heads > 1 else None))
+            for name, m in mod._modules.items():
+                setattr(ns, name, walk(m, f"{prefix}{name}."))
+            return ns
+        return walk(module, "")
+
+    def model_all_reduce(self, t, like):
+        """The sum over model of each rank's plain tensor ``t`` (every rank
+        gets it); its gradient is summed over model in turn."""
+        return _ModelSum.apply(t, like.device_mesh.get_group(self.tp_axis))
+
+    def model_gather(self, t, dim: int, split: bool, like):
+        """Every model rank's share of dimension ``dim`` of the plain tensor
+        ``t`` (over this rank's rows), concatenated in rank order, on every
+        model rank."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        rows = self._rows(split)
+        shard = tuple(Shard(dim) if a == self.tp_axis else pl
+                      for a, pl in zip(self.axis_names, rows))
+        return DTensor.from_local(t, like.device_mesh, shard, run_check=False) \
+            .redistribute(like.device_mesh, rows).to_local()
+
+    def model_rank(self, like) -> int:
+        return like.device_mesh.get_local_rank(self.tp_axis)
+
+    def reduced_rows(self, part, split: bool, heads: int, like, spec: Spec):
+        """This rank's result ``part`` over its rows as the DTensor with
+        ``spec``'s placements: the sum of the model ranks' parts when they
+        split the heads (an all-reduce, or a reduce-scatter where ``spec``
+        splits a dimension over model), else the rank's own result."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if heads == 1:
+            return self.from_rows(part, split, like, None, spec)
+        mesh = like.device_mesh
+        stacked = tuple(Shard(0) if a == self.tp_axis
+                        else Shard(1) if (split and a in self.dp_axes) else Replicate()
+                        for a in self.axis_names)
+        dt = DTensor.from_local(part[None], mesh, stacked, run_check=False).sum(dim=0)
+        return dt.redistribute(mesh, self.placements(spec))
+
+    def residual_spec(self, shape) -> Spec:
+        """The residual stream's spec (``constrain_residual``)."""
+        b, s, _ = shape
+        return (self._fits(b, self.dp),
+                self._fits(s, self.tp_axis) if (self.sp and s > 1) else None, None)
 
     def row_split(self, batch: int) -> bool:
         """Whether row-local work splits ``batch`` rows over the data axes
         (as the MoE's dispatch groups do)."""
         return self.moe_groups(batch) > 1
+
+
+class _ModelSum(torch.autograd.Function):
+    """All-reduce (sum) over a process group whose backward pass is the
+    all-reduce of the gradients: each rank's gradient of the sum is its own
+    part, and every rank's input needs the whole."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def is_distributed(t) -> bool:

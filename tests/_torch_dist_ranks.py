@@ -23,6 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_STEPS = 4
 MOE_BATCH = 4
 MOE_TRAIN_STEPS = 3
+SSM_PROMPT = 16           # the SSM decode check: a 16-position prefill, then 3 steps
+SSM_STEPS = 3
 
 
 def free_port() -> int:
@@ -168,6 +170,8 @@ def sharding_checks(rank, jobs):
     out["moe_train"] = _grouped_moe_train(jobs, mesh, cfg, batch)
     out["mamba_grads"] = _mamba_grads(jobs, mesh)
     out["flash"] = _sharded_flash(jobs, mesh)
+    out["ssm_decode"] = _sharded_ssm_decode(jobs, mesh)
+    out["whole_heads"] = _whole_heads_mamba(jobs)
 
     # ---- decode steps with the caches sharded by sequence
     out["decode"] = {}
@@ -253,28 +257,131 @@ def _grouped_moe_train(jobs, mesh, cfg, batch):
 
 def _mamba_grads(jobs, mesh):
     """Reduced mamba2-780m on the (2, 2) mesh (SP, FSDP; the mixer on each
-    data rank's rows): the loss and every gradient of one batch."""
+    data rank's rows and each model rank's heads): the loss and every
+    gradient of one batch, the head count each scan saw and the shapes of
+    the weights each rank computed with."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import mamba2
     from repro_torch.parallel.sharding import ShardingPolicy
     from repro_torch.train import init_train_state, optimizer
+
+    import torch.distributed as dist
 
     cfg = reduced(get_arch("mamba2-780m"))
     policy = ShardingPolicy(mesh)
     model = _model(None, jobs["mamba_params"], policy, cfg=cfg, remat="none")
     init_train_state(model, optimizer.adamw(optimizer.cosine_schedule(1e-3, 2, 20)))
     batch = to_device(SyntheticLM(cfg, DataConfig(4, 32, 3)).batch(0), "cpu", policy)
+    heads, shares = [], []
+    real_scan, real_shares = mamba2.ssd_chunked, policy.head_shares
+
+    def scan(x, *a, **kw):
+        heads.append(x.shape[2])
+        return real_scan(x, *a, **kw)
+
+    def recording_shares(*a, **kw):
+        ns = real_shares(*a, **kw)
+        shares.append({n: tuple(getattr(ns, n).shape) for n in ("wz", "wx", "out_proj")})
+        return ns
+    mamba2.ssd_chunked, policy.head_shares = scan, recording_shares
+    try:
+        with policy.context():
+            loss = model.loss_fn(batch)[0]
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        mamba2.ssd_chunked = real_scan
+        del policy.head_shares
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (heads, shares))
+    return {"loss": float(loss.detach().full_tensor()),
+            "grads": {n: g.full_tensor() for (n, _), g in zip(model.named_parameters(), grads)},
+            "scan_heads": [h for h, _ in seen], "shares": [sh for _, sh in seen]}
+
+
+def _sharded_ssm_decode(jobs, mesh):
+    """Reduced mamba2-780m and jamba-v0.1-52b under the policy on the (2, 2)
+    mesh: a prefill of ``jobs["ssm_tokens"]``'s first SSM_PROMPT positions,
+    its caches placed as ``cache_spec`` says, then one decode step for each
+    further position; the logits of every step, the caches' placements
+    against the specs, and what ``place_caches`` says to a cache one
+    position shorter than the prompt."""
+    from repro_torch.models.convert import layer_prefixes
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    tokens = torch.from_numpy(jobs["ssm_tokens"])
+    b, total = tokens.shape
+    out = {}
+    for name, params in jobs["ssm_params"].items():
+        policy = ShardingPolicy(mesh)
+        model = _model(None, params, policy, cfg=jobs["ssm_cfgs"][name])
+        steps = []
+        with torch.no_grad():
+            logits, caches = model.prefill(policy.batch_shardings(
+                {"tokens": tokens[:, :SSM_PROMPT]}))
+            try:
+                policy.place_caches(model, caches, SSM_PROMPT - 1)
+                short = None
+            except ValueError as e:
+                short = str(e)
+            caches = policy.place_caches(model, caches, total)
+            steps.append(logits.full_tensor().numpy())
+            for pos in range(SSM_PROMPT, total):
+                tok = policy.batch_shardings({"t": tokens[:, pos:pos + 1]})["t"]
+                logits, caches = model.decode_step(tok, caches, pos)
+                steps.append(logits.full_tensor().numpy())
+        placed = [(tuple(t.placements), policy.placements(
+                   policy.cache_spec(f"{prefix}/{key}", tuple(t.shape))))
+                  for prefix, cache in zip(layer_prefixes(model.cfg), caches)
+                  for key, t in cache.items()]
+        out[name] = {"logits": np.stack(steps), "short_cache_error": short,
+                     "placements_ok": all(a == w for a, w in placed),
+                     "placements": sorted({str(a) for a, _ in placed})}
+    return out
+
+
+def _whole_heads_mamba(jobs):
+    """Reduced mamba2-780m widened to 6 heads of 32 (d_inner 192) on a
+    (1, 4) mesh with SP: the model axis divides d_inner, so ``wx`` is split
+    through a head, but not H, so every rank runs all heads.  The loss and
+    every gradient of one batch, then a prefill and a decode step at each
+    further position of ``jobs["ssm_tokens"]``."""
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch.mesh import make_mesh_dp_tp
+    from repro_torch.parallel.sharding import ShardingPolicy
+    from repro_torch.train import init_train_state, optimizer
+
+    cfg = jobs["whole_cfg"]
+    policy = ShardingPolicy(make_mesh_dp_tp(1, 4))
+    model = _model(None, jobs["whole_params"], policy, cfg=cfg, remat="none")
+    init_train_state(model, optimizer.adamw(optimizer.cosine_schedule(1e-3, 2, 20)))
+    batch = to_device(SyntheticLM(cfg, DataConfig(4, 32, 3)).batch(0), "cpu", policy)
     with policy.context():
         loss = model.loss_fn(batch)[0]
         grads = torch.autograd.grad(loss, list(model.parameters()))
+    tokens = torch.from_numpy(jobs["ssm_tokens"])
+    steps = []
+    with torch.no_grad():
+        logits, caches = model.prefill(policy.batch_shardings({"tokens": tokens[:, :SSM_PROMPT]}))
+        caches = policy.place_caches(model, caches, tokens.shape[1])
+        steps.append(logits.full_tensor().numpy())
+        for pos in range(SSM_PROMPT, tokens.shape[1]):
+            tok = policy.batch_shardings({"t": tokens[:, pos:pos + 1]})["t"]
+            steps.append(model.decode_step(tok, caches, pos)[0].full_tensor().numpy())
     return {"loss": float(loss.detach().full_tensor()),
-            "grads": {n: g.full_tensor() for (n, _), g in zip(model.named_parameters(), grads)}}
+            "grads": {n: g.full_tensor() for (n, _), g in zip(model.named_parameters(), grads)},
+            "wx_placements": str(model.stack.layers[0].mixer.wx.placements),
+            "heads": policy.head_split(cfg.n_ssm_heads), "logits": np.stack(steps)}
 
 
 def _sharded_flash(jobs, mesh):
-    """Reduced tinyllama-1.1b prefill with ``attn_impl="flash"``: on a (2, 2)
-    mesh with SP off (batch over data, heads over model) against the
-    unsharded plain path, and with SP on, where K3 must refuse."""
+    """K3's path under the reference's placements: reduced tinyllama-1.1b's
+    flash prefill on the (2, 2) mesh with SP off (batch over data, heads
+    over model) and with SP on (q's sequence split over model, gathered
+    for K3), and reduced glm4-9b's on a (1, 4) mesh (its 4 q heads split
+    beside its 2 kv heads whole); the logits and K3's (q, k) shapes on
+    each path."""
+    from repro_torch.launch.mesh import make_mesh_dp_tp
     from repro_torch.models import attention
     from repro_torch.parallel.sharding import ShardingPolicy
 
@@ -282,31 +389,24 @@ def _sharded_flash(jobs, mesh):
     calls, real = [], attention.flash_attention
 
     def recording(q, k, v, **kw):
-        calls.append((tuple(q.shape), type(q).__name__))
+        calls.append((tuple(q.shape), tuple(k.shape), type(q).__name__))
         return real(q, k, v, **kw)
 
     out = {}
-    with torch.no_grad():
-        plain = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"])
-        out["plain"] = plain.prefill({"tokens": tokens})[0].numpy()
-        attention.flash_attention = recording
-        try:
-            policy = ShardingPolicy(mesh, sp=False)
-            model = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"], policy,
-                           attn_impl="flash", sp=False)
-            out["sharded"] = model.prefill(policy.batch_shardings({"tokens": tokens}))[0] \
-                .full_tensor().numpy()
-            out["calls"] = list(calls)
-            sp = ShardingPolicy(mesh, sp=True)
-            model = _model("tinyllama-1.1b", jobs["train"]["adamw"]["params"], sp,
-                           attn_impl="flash", sp=True)
-            try:
-                model.prefill(sp.batch_shardings({"tokens": tokens}))
-                out["sp_error"] = None
-            except NotImplementedError as e:
-                out["sp_error"] = str(e)
-        finally:
-            attention.flash_attention = real
+    runs = (("sp_off", mesh, "tinyllama-1.1b", jobs["train"]["adamw"]["params"], False),
+            ("sp", mesh, "tinyllama-1.1b", jobs["train"]["adamw"]["params"], True),
+            ("glm_1x4", make_mesh_dp_tp(1, 4), "glm4-9b", jobs["glm_params"], False))
+    attention.flash_attention = recording
+    try:
+        with torch.no_grad():
+            for label, m, name, params, sp in runs:
+                policy = ShardingPolicy(m, sp=sp)
+                model = _model(name, params, policy, attn_impl="flash", sp=sp)
+                logits = model.prefill(policy.batch_shardings({"tokens": tokens}))[0]
+                out[label] = {"logits": logits.full_tensor().numpy(), "calls": list(calls)}
+                calls.clear()
+    finally:
+        attention.flash_attention = real
     return out
 
 

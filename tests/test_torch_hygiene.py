@@ -72,6 +72,16 @@ served = serve_explore.main(["--workload", "llama2-7b", "--reduced", "--gen-toke
                              "--tenants", os.path.join(tmp, "tenants.json"),
                              "--out-dir", tmp, "--checkpoint-root", os.path.join(tmp, "ck")])
 assert all(s.state == "done" for s in served.service._sweeps.values())
+import importlib.util
+examples = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__))),
+                        "..", "examples")
+for name in ("quickstart", "serve_batched", "train_100m", "multi_board_zmq"):
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(examples, f"torch_{name}.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    if name == "quickstart":
+        assert len(example.main(["--device", "cpu"]).store.ok_records()) == 40
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 assert not bad, bad

@@ -367,10 +367,10 @@ def test_train_cell_state_bytes_and_collectives_hand_count(fsdp, grad_rs, sp):
     x = 4 * 16 / 2 * 64 * 2                    # tokens / dp × d_model × bf16
     tp_red = 3 * 4 * x / 2                     # 3 passes (remat) × 4 reductions
     ce = 3 * 2 * (4 * 16 / 2) * 4 / 2          # max, sum, gold: fp32 all-reduces
-    if sp:                                     # + the embedding's sum over vocab shares
-        gather, rs = gather + tp_red + x / 2, rs + tp_red + x / 2
-    else:
-        ar += 2 * tp_red + 2 * x / 2
+    if sp:   # + the embedding's sum over vocab shares, the head's input gather
+        gather, rs = gather + tp_red + 2 * x / 2, rs + tp_red + 2 * x / 2
+    else:    # + the embedding's sum, the head's input gradient summed over vocab shares
+        ar += 2 * tp_red + 2 * 2 * x / 2
     ar += ce
     want = {k: v for k, v in (("all-gather", gather), ("reduce-scatter", rs),
                               ("all-reduce", ar)) if v}
@@ -393,11 +393,54 @@ def test_train_moe_collectives_follow_the_expert_layout(sp):
     assert c == 24
     experts = 3 * (4 * c * 64 * 2) / 2         # 3 passes × the group's (E, C, d) outputs
     ce = 3 * 2 * 32 * 4 / 2                    # max, sum, gold: fp32 all-reduces
-    if sp:   # 2 mixers + dense + shared + the MoE's rows taken whole, 3 passes; embedding
-        want = {"all-gather": 3 * 5 * x / 2 + experts + x / 2,
-                "reduce-scatter": 3 * 5 * x / 2 + x / 2, "all-reduce": ce}
-    else:    # 2 mixers + dense + shared, 3 passes; the embedding's all-reduce
-        want = {"all-reduce": 3 * 4 * 2 * x / 2 + 2 * x / 2 + ce, "all-gather": experts}
+    if sp:   # 2 mixers + dense + shared + the MoE's rows taken whole, 3 passes;
+        #      the embedding; the head's input
+        want = {"all-gather": 3 * 5 * x / 2 + experts + 2 * x / 2,
+                "reduce-scatter": 3 * 5 * x / 2 + 2 * x / 2, "all-reduce": ce}
+    else:    # 2 mixers + dense + shared, 3 passes; the embedding's and the head's all-reduces
+        want = {"all-reduce": 3 * 4 * 2 * x / 2 + 2 * 2 * x / 2 + ce, "all-gather": experts}
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+@pytest.mark.parametrize("sp", [False, True])
+def test_train_mamba_collectives_follow_the_head_split(sp, tp):
+    """Reduced mamba2-780m (2 Mamba-2 layers, no FFN; D = 64, d_inner =
+    128, H = 8, N = 16, K = 4, V = 256) at dp = 2, batch 4 × 16, bf16,
+    remat full, ``loss_chunks`` 2: the tensor-parallel wire bytes counted
+    here by hand.  At tp = 2 the heads split (``mamba_block_sharded``);
+    at tp = 16, which does not divide H, every rank runs the whole mixer."""
+    cfg = reduced(get_arch("mamba2-780m"))
+    flags = BuildFlags(sp=sp, remat="full", loss_chunks=2)
+    got = build.train_collective_bytes(cfg, ShapeConfig("t", "train", 16, 4), flags, 2, tp, [])
+    f = (tp - 1) / tp
+    tokens = 4 * 16 / 2
+    x = tokens * 64 * 2                        # tokens / dp × d_model × bf16
+    ce = 2 * 3 * 2 * tokens * 4 * f            # max, sum, gold; again in the recompute
+    want = {"all-reduce": ce}
+    add = lambda kind, v: want.__setitem__(kind, want.get(kind, 0.0) + v)
+    if tp == 2:
+        red = 3 * 2 * x * f                    # 3 passes × 2 mixers' output sums
+        if sp:
+            add("all-gather", red)
+            add("reduce-scatter", red)
+        else:
+            add("all-reduce", 2 * red)
+        w = 2 * (64 * 16 + 16 * 4) * 2         # wb, wc, conv_b, conv_c
+        add("all-gather", 2 * 2 * w * f)       # forward and recompute, 2 layers
+        add("reduce-scatter", 2 * w * f)       # their gradients
+        add("all-to-all", 3 * 2 * (128 * 64 / 2 * 2) * f)      # out_proj's rows
+        add("all-reduce", 3 * 2 * 2 * tokens * 4 * f)          # the gated norm's squares
+    else:    # tp = 16: wz, wx, wb, wc, conv_x, conv_b, conv_c, out_proj gathered
+        w = (2 * 64 * 128 + 2 * 64 * 16 + 128 * 4 + 2 * 16 * 4 + 128 * 64) * 2
+        add("all-gather", 2 * 2 * w * f)
+        if sp:
+            add("all-gather", 3 * 2 * x * f)   # the input's sequence; the output's gradient
+    if sp:   # the embedding; the head's input gathered twice (chunk recompute)
+        add("all-gather", x * f + 2 * x * f)
+        add("reduce-scatter", x * f + x * f)
+    else:    # the embedding's sum; the head's input gradient
+        add("all-reduce", 2 * x * f + 2 * x * f)
     assert got == pytest.approx(want, rel=1e-12)
 
 

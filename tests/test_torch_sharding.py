@@ -22,9 +22,15 @@
   on a (2, 4) mesh, both at rtol 1e-5; a grouped MoE train step at dp = 2
   with the experts over model: every gradient, then three steps' losses,
   grad norms and weights against the reference's grouped step; reduced
-  mamba2-780m's gradients against the reference's single device; a flash
-  prefill (K3 on each rank's block) with SP off, and the error with SP
-  on; reduced glm4-9b decode
+  mamba2-780m's gradients against the reference's single device, with the
+  mixer on each rank's H/2 heads and no rank computing with a whole
+  ``wz``, ``wx`` or ``out_proj``; reduced mamba2-780m's and
+  jamba-v0.1-52b's prefill and three decode steps under the policy against
+  the reference's single device, the caches in ``cache_spec``'s
+  placements; a 6-head Mamba-2 on a (1, 4) mesh, whose heads the model
+  axis does not divide (gradients, prefill and decode); flash prefills (K3 on each rank's block) with SP off, with
+  SP on, and with glm4-9b's split q heads beside whole kv heads on a
+  (1, 4) mesh, against the reference's flash prefill; reduced glm4-9b decode
   steps with the caches placed by ``cache_spec`` at batch 4 and 1, the
   logits equal to the unsharded steps' at 2e-5, inside
   ``tests/test_torch_models.py``'s fp32 tolerance (5e-5); a sharded state's checkpoint equal file for file to the
@@ -205,6 +211,71 @@ def _jax_mamba_grads():
     return jax.tree.map(np.asarray, params), float(loss), jax.tree.map(np.asarray, grads)
 
 
+def _jax_ssm_decode():
+    """Reduced mamba2-780m and jamba-v0.1-52b (capacity factor 8, so that
+    no token drops: the grouped dispatch under the policy then routes as
+    one group) on the reference's single device: the weights, and the
+    logits of a prefill of the first SSM_PROMPT tokens and of a decode step
+    at each further position, the caches grown as its ``Engine`` grows
+    them."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    tokens = np.random.default_rng(7).integers(
+        0, 256, (4, ranks.SSM_PROMPT + ranks.SSM_STEPS)).astype(np.int32)
+    params, cfgs, logits = {}, {}, {}
+    for name in ("mamba2-780m", "jamba-v0.1-52b"):
+        cfg = dataclasses.replace(jreduced(jget_arch(name)), capacity_factor=8.0)
+        jm = JModel(cfg, JFlags(dtype="float32"))
+        p = jm.init(jax.random.key(0))
+        out, caches = jm.prefill(p, {"tokens": jnp.asarray(tokens[:, :ranks.SSM_PROMPT])})
+        caches = jax.tree_util.tree_map_with_path(
+            lambda path, c: jnp.pad(c, [(0, 0)] * (c.ndim - 3) + [(0, ranks.SSM_STEPS)]
+                                    + [(0, 0)] * 2)
+            if str(path[-1].key) in ("k", "v") else c, caches)
+        steps = [np.asarray(out)]
+        for pos in range(ranks.SSM_PROMPT, tokens.shape[1]):
+            out, caches = jm.decode_step(p, jnp.asarray(tokens[:, pos:pos + 1]), caches, pos)
+            steps.append(np.asarray(out))
+        params[name] = jax.tree.map(np.asarray, p)
+        cfgs[name] = dataclasses.replace(reduced(get_arch(name)), capacity_factor=8.0)
+        logits[name] = np.stack(steps)
+    return tokens, params, cfgs, logits
+
+
+def _jax_whole_heads(tokens):
+    """Reduced mamba2-780m widened to 6 heads of 32 (d_inner 192) on the
+    reference's single device: the weights, the loss and gradients of one
+    batch, and the logits of a prefill and decode steps of ``tokens``."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    cfg = dataclasses.replace(jreduced(jget_arch("mamba2-780m")), ssm_expand=3, ssm_head_dim=32)
+    jm = JModel(cfg, JFlags(dtype="float32", remat="none", sp=False))
+    params = jm.init(jax.random.key(0))
+    batch = device_put_batch(JSyntheticLM(cfg, JDataConfig(4, 32, 3)).batch(0))
+    loss, grads = jax.value_and_grad(lambda p: jm.loss_fn(p, batch)[0])(params)
+    out, caches = jm.prefill(params, {"tokens": jnp.asarray(tokens[:, :ranks.SSM_PROMPT])})
+    steps = [np.asarray(out)]
+    for pos in range(ranks.SSM_PROMPT, tokens.shape[1]):
+        out, caches = jm.decode_step(params, jnp.asarray(tokens[:, pos:pos + 1]), caches, pos)
+        steps.append(np.asarray(out))
+    return (jax.tree.map(np.asarray, params), float(loss), jax.tree.map(np.asarray, grads),
+            np.stack(steps))
+
+
+def _jax_flash_prefill(name, params):
+    """The reference's single-device flash prefill (its Pallas kernel in
+    interpret mode) of the tokens ``_sharded_flash`` prefills."""
+    import jax.numpy as jnp
+
+    tokens = np.random.default_rng(5).integers(0, 256, (4, 16)).astype(np.int32)
+    jm = JModel(jreduced(jget_arch(name)), JFlags(dtype="float32", attn_impl="flash"))
+    return np.asarray(jm.prefill(params, {"tokens": jnp.asarray(tokens)})[0])
+
+
 def _jax_glm_params():
     jm = JModel(jreduced(jget_arch("glm4-9b")), JFlags(dtype="float32"))
     return jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
@@ -247,8 +318,12 @@ np.savez(%(out)r, losses=np.array(losses), grad_norms=np.array(gnorms),
 def dist_results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     mamba_params, mamba_loss, mamba_grads = _jax_mamba_grads()
+    ssm_tokens, ssm_params, ssm_cfgs, ssm_logits = _jax_ssm_decode()
     jobs = {"train": {}, "moe_params": _jax_moe_params(), "glm_params": _jax_glm_params(),
-            "mamba_params": mamba_params, "tmp": str(tmp)}
+            "mamba_params": mamba_params, "tmp": str(tmp), "ssm_tokens": ssm_tokens,
+            "ssm_params": ssm_params, "ssm_cfgs": ssm_cfgs}
+    whole_params, whole_loss, whole_grads, whole_logits = _jax_whole_heads(ssm_tokens)
+    jobs["whole_params"], jobs["whole_cfg"] = whole_params, _whole_cfg()
     ref = {}
     for opt_name in ("adamw", "adafactor"):
         params, losses, gnorms, final = _jax_losses(opt_name)
@@ -260,9 +335,14 @@ def dist_results(tmp_path_factory):
     grouped_ref_loss = float.fromhex(out.split("GROUPED_LOSS ")[1].split()[0])
     with np.load(npz) as z:
         grouped = {k: z[k] for k in z.files}
+    flash_ref = {"tinyllama-1.1b": _jax_flash_prefill("tinyllama-1.1b",
+                                                      jobs["train"]["adamw"]["params"]),
+                 "glm4-9b": _jax_flash_prefill("glm4-9b", jobs["glm_params"])}
     return dict(ranks.spawn(ranks.sharding_checks, jobs, world=4), ref=ref,
                 grouped_ref_loss=grouped_ref_loss, grouped_ref=grouped,
-                mamba_ref={"loss": mamba_loss, "grads": mamba_grads})
+                mamba_ref={"loss": mamba_loss, "grads": mamba_grads},
+                ssm_ref=ssm_logits, flash_ref=flash_ref,
+                whole_ref={"loss": whole_loss, "grads": whole_grads, "logits": whole_logits})
 
 
 def _tree(flat, tag):
@@ -335,8 +415,9 @@ def test_grouped_moe_train_step_matches_reference(dist_results):
 
 def test_sharded_mamba_gradients_match_reference(dist_results):
     """Reduced mamba2-780m on the (2, 2) mesh with SP and FSDP, the mixer on
-    each data rank's rows with its weights whole: the loss at rtol 1e-5 and
-    every gradient at GRAD_TOL against the reference's single device."""
+    each data rank's rows and each model rank's heads: the loss at rtol
+    1e-5 and every gradient at GRAD_TOL against the reference's single
+    device."""
     r, ref = dist_results["mamba_grads"], dist_results["mamba_ref"]
     np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
     want = params_from_jax(ref["grads"], reduced(get_arch("mamba2-780m")))
@@ -345,15 +426,84 @@ def test_sharded_mamba_gradients_match_reference(dist_results):
         np.testing.assert_allclose(g.numpy(), want[n].numpy(), **GRAD_TOL, err_msg=n)
 
 
+def test_sharded_mamba_runs_each_ranks_heads(dist_results):
+    """Every rank's scans saw H/2 heads (the (2, 2) mesh's model axis
+    divides reduced mamba2-780m's 8), and no rank computed with a whole
+    ``wz``, ``wx`` or ``out_proj``: their d_inner dimension is halved."""
+    r = dist_results["mamba_grads"]
+    cfg = reduced(get_arch("mamba2-780m"))
+    di, d = cfg.d_inner, cfg.d_model
+    assert len(r["scan_heads"]) == 4
+    for heads, shares in zip(r["scan_heads"], r["shares"]):
+        assert heads == [cfg.n_ssm_heads // 2] * cfg.n_layers
+        assert shares == [{"wz": (d, di // 2), "wx": (d, di // 2),
+                           "out_proj": (di // 2, d)}] * cfg.n_layers
+
+
+def _whole_cfg():
+    import dataclasses
+
+    return dataclasses.replace(reduced(get_arch("mamba2-780m")), ssm_expand=3, ssm_head_dim=32)
+
+
+def test_sharded_mamba_runs_all_heads_where_tp_does_not_divide_them(dist_results):
+    """6 heads of 32 on a (1, 4) mesh: ``wx`` split over model through a
+    head, every rank running all heads; the loss at rtol 1e-5, every
+    gradient at GRAD_TOL and the prefill and decode logits within 1e-5 of
+    the largest, against the reference's single device."""
+    r, ref = dist_results["whole_heads"], dist_results["whole_ref"]
+    assert r["heads"] == 1 and "Shard(dim=1)" in r["wx_placements"], r
+    np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
+    want = params_from_jax(ref["grads"], _whole_cfg())
+    assert sorted(r["grads"]) == sorted(want)
+    for n, g in r["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[n].numpy(), **GRAD_TOL, err_msg=n)
+    np.testing.assert_allclose(r["logits"], ref["logits"], rtol=0,
+                               atol=1e-5 * np.abs(ref["logits"]).max())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_sharded_ssm_decode_matches_reference(arch, dist_results):
+    """A prefill and three decode steps under the policy on the (2, 2)
+    mesh (the Mamba-2 state's heads and the conv window's channels over
+    model; jamba's attention layer against the sequence-sharded KV cache)
+    against the reference's single-device prefill and decode: the logits
+    of every step within 1e-5 of the largest |logit| (fp32), the caches in
+    ``cache_spec``'s placements."""
+    r, want = dist_results["ssm_decode"][arch], dist_results["ssm_ref"][arch]
+    assert r["placements_ok"], r["placements"]
+    assert any("Shard(dim=1)" in p for p in r["placements"])
+    assert r["logits"].shape == want.shape == (1 + ranks.SSM_STEPS, 4, 256)
+    np.testing.assert_allclose(r["logits"], want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_place_caches_refuses_a_cache_shorter_than_the_prompt(dist_results):
+    """``ShardingPolicy.place_caches`` asked for a cache one position
+    shorter than jamba's prompt raises, as ``serve.engine.pad_caches``
+    does, rather than cropping the K/V; mamba2-780m's caches have no
+    sequence axis and place as they are."""
+    r = dist_results["ssm_decode"]
+    msg = f"a {ranks.SSM_PROMPT}-position prompt does not fit a {ranks.SSM_PROMPT - 1}-slot cache"
+    assert r["jamba-v0.1-52b"]["short_cache_error"] == msg
+    assert r["mamba2-780m"]["short_cache_error"] is None
+
+
 def test_sharded_flash_attention_runs_k3_on_blocks(dist_results):
-    """With SP off K3 takes each rank's block (batch over data, heads over
-    model) and gives the unsharded plain path's logits; with SP on, whose
-    sequence split K3 cannot take, it raises rather than falling back."""
-    r = dist_results["flash"]
+    """K3 under every placement the reference's rules give, against the
+    reference's single-device flash prefill: with SP off each rank's block
+    (batch over data, heads over model); with SP on q's sequence gathered
+    over model, all heads, against k/v whole; on glm4-9b's (1, 4) mesh each
+    rank's q head beside the one kv head it uses."""
+    r, ref = dist_results["flash"], dist_results["flash_ref"]
     n_attn = reduced(get_arch("tinyllama-1.1b")).n_layers
-    assert r["calls"] == [((2, 16, 2, 16), "Tensor")] * n_attn, r["calls"]
-    np.testing.assert_allclose(r["sharded"], r["plain"], atol=2e-5, rtol=2e-5)
-    assert r["sp_error"] and "Shard(dim=1)" in r["sp_error"]
+    assert r["sp_off"]["calls"] == [((2, 16, 2, 16), (2, 16, 1, 16), "Tensor")] * n_attn
+    assert r["sp"]["calls"] == [((2, 16, 4, 16), (2, 16, 2, 16), "Tensor")] * n_attn
+    n_glm = reduced(get_arch("glm4-9b")).n_layers
+    assert r["glm_1x4"]["calls"] == [((4, 16, 1, 16), (4, 16, 1, 16), "Tensor")] * n_glm
+    for label, arch in (("sp_off", "tinyllama-1.1b"), ("sp", "tinyllama-1.1b"),
+                        ("glm_1x4", "glm4-9b")):
+        np.testing.assert_allclose(r[label]["logits"], ref[arch], atol=2e-5, rtol=2e-5,
+                                   err_msg=label)
 
 
 @pytest.mark.parametrize("batch", [4, 1])
