@@ -10,17 +10,18 @@ failed check and then prints no result):
 2. build: every kernel of every path (K3; K1a, K1b and K2 in one source;
    K4; K5) compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source
    started together, with the ``-Xptxas -v`` resource report; each K3
-   instantiation's tensor-core (``HGMMA``) and TMA (``UTMALDG``)
+   instantiation's tensor-core (``HGMMA``, ``HMMA``) and TMA (``UTMALDG``)
    instructions counted in its SASS (``cuobjdump -sass``): every bf16 one
-   must have both; gp_sass: the float64 tensor-core (``DMMA``)
+   must have HGMMA and UTMALDG, every fp32 one HMMA (three TF32 passes);
+   gp_sass: the float64 tensor-core (``DMMA``)
    instructions of each gp_ops kernel, which both fold products (K1a's and
    K1b's ``gp_fold_kernel``) and K2's partial pass must have, K2's two
    kernels' registers and spills (``-Xptxas -v``; none may spill), and the
    float64 instructions of one ``exp()`` in a probe built beside the
    kernels (``PROBE_SOURCE``), which K2's bound charges per pair;
    ssd_sass: the tensor-core (``HMMA``) instructions of each K4
-   instantiation, which every bf16 chunk kernel must have, with its
-   registers and spills;
+   instantiation, which every chunk kernel, bf16 and fp32, must have, with
+   its registers and spills;
 3. kernel parity: K3 against its plain PyTorch version on the card
    (TF32 off), fp32 at 2e-5 and bf16 at 2e-2 (``tests/test_kernels.py``'s
    tolerances), and each bf16 case also against the plain version in fp32
@@ -28,11 +29,16 @@ failed check and then prints no result):
    shape the llama2-7b and deepseek-moe-16b paths give it
    (``main_path_cases``) and beyond (``EXTRA_CASES``: long prompts, GQA,
    windows, ragged edges, every head dim, gemma3-27b's heads and 1024-token
-   window at a 4096-token prompt);
+   window at a 4096-token prompt, and the fp32 calls of serve_fp32, of
+   ``launch.serve``'s defaults and of train_sharded's prefill), each fp32
+   case also against its mirror (``flash_attention_mirror_fp32``), every
+   case launched twice and bitwise equal;
    K4 (``ssd_parity``) the same way, with y and the fp32 final state at
    ``SSD_TOL`` in fp32, on ``tests/test_kernels.py``'s grid, every shape of
    the Mamba path, a jamba-like head, H = 5 and chunks of 8 and 75, with
-   every SM's shared memory filled with NaN before each launch; K5 (``topk_parity``) with ids equal
+   every SM's shared memory filled with NaN before each launch, the fp32
+   cases (mamba2-780m's widths at (4, 64) and (4, 512), odd heads and
+   chunks) also against the mirror; K5 (``topk_parity``) with ids equal
    and probabilities within ``TOPK_P_TOL``, ties and ragged T included;
    K4 and K5 launched twice on the same inputs must repeat bitwise;
 4. main path (serving): llama2-7b at full width in bf16 with random weights
@@ -97,7 +103,11 @@ failed check and then prints no result):
    name; ``topk_host_path`` times K5's call path piece by piece beside an
    empty kernel launched through ctypes (the launch floor); K4 at each of
    its five serving-path shapes, with its grid, the device time inside a
-   CUDA graph (``graph_ms``) and its host enqueue time per call.
+   CUDA graph (``graph_ms``) and its host enqueue time per call;
+   ``phase_fp32_times``: K3 in fp32 at ``FP32_K3_TIMED`` (SDPA in fp32 held
+   first to K3's plain version at 2e-5) and K4 in fp32 at
+   ``FP32_K4_TIMED``, their bounds at three TF32 passes (``float32_tc``,
+   495 / 3 TFLOP/s) and, beside, at the CUDA cores' 67 TFLOP/s.
 
 11. explore_main (the paper's DSE loop, ``launch.explore``): llama2-7b's
    generation workload at full width, ``--algorithm bayesopt --gp cuda``,
@@ -227,8 +237,20 @@ failed check and then prints no result):
    multi_board_zmq where pyzmq imports (otherwise one line says that it
    is missing); wall seconds of each.
 
-Standard output ends with a ``kernels`` JSON line (K3's, K4's, K5's and the
-GP kernels' entries also carry ``launches_by_path``), the nvidia-smi line and
+21. serve_fp32 (after main_moe): ``repro_torch.launch.serve.main`` at its
+   defaults (fp32, flash, cuda, batch 4) but ``--arch``, ``--prompt-len 64``
+   and ``--gen 8``: llama2-7b at full width and depth (32 layers, about 27
+   GB), then mamba2-780m (48 layers); K3's and K4's launches per prefill
+   (32 and 48), the first K3 and K4 call held against their plain
+   versions, the prefill logits against the same weights on the plain
+   paths within 1e-5 of max |logit| or, with attention, no farther from
+   them than the same weights with K3's plain version in float64 in its
+   place (the fp32 rounding floor: about 1.2e-5 at 32 fp32 layers),
+   prefill ms, decode ms per token and peak memory.
+
+Standard output ends with a ``kernels`` JSON line (K3's and K4's bf16 and
+fp32 paths, K5's and the GP kernels' entries also carry
+``launches_by_path``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  ``--only a,b`` builds the kernels and
 runs only the named phases, printing no result.
 """
@@ -250,7 +272,12 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 # dense peaks from NVIDIA's H100 SXM data sheet: fp32 off the tensor cores,
 # fp64 on them (DMMA; 34 TFLOP/s on the CUDA cores)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 67e12,
+              # fp32 on the tensor cores at fp32 accuracy: three TF32 products
+              # (hi·hi + hi·lo + lo·hi) per fp32 product, 495 / 3 TFLOP/s: the
+              # least time the card could take for an fp32-accurate product,
+              # the bound of K3's and K4's fp32 paths (K5 and the GP keep theirs)
+              "float32_tc": 495e12 / 3}
 F64_CUDA_CORE_FLOPS = 34e12    # float64 off the tensor cores: a DFMA issue is 2 flop
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # A bf16 kernel output against the plain version run in fp32 on the same
@@ -332,13 +359,20 @@ def attended_pairs(s, window):
     return sum(min(window, i + 1) for i in range(s))
 
 
-def flash_bound(b, s, h, hkv, d, window, dtype):
-    """(bound_ms, bound_by) of one attention call: q, k, v read once, o written once."""
+def flash_bound(b, s, h, hkv, d, window, dtype, peak=None):
+    """(bound_ms, bound_by) of one attention call: q, k, v read once, o written
+    once; operations at ``peak`` FLOP/s (by default the dtype's product rate)."""
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * b * s * d * (2 * h + 2 * hkv)
     flops = 4 * b * h * d * attended_pairs(s, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or PEAK_FLOPS[product_rate(dtype)])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def product_rate(dtype):
+    """PEAK_FLOPS's key for K3's and K4's products in ``dtype``: bf16 at the
+    bf16 tensor-core peak, fp32 at three TF32 passes (``float32_tc``)."""
+    return "bfloat16" if dtype == "bfloat16" else "float32_tc"
 
 
 def qkv(b, s, h, hkv, d, dtype, seed):
@@ -384,6 +418,11 @@ EXTRA_CASES = [
     ("d32_window", 2, 130, 4, 4, 32, 24, "bfloat16"),
     ("main_path_fp32", 1, 64, 32, 32, 128, 0, "float32"),
     ("long_prompt_fp32", 1, 2048, 32, 32, 128, 0, "float32"),
+    # the fp32 calls FP32_K3_TIMED times: launch.serve's defaults, its
+    # llama2-7b prefill (serve_fp32) and train_sharded's prefill
+    ("serve_default_fp32", 4, 16, 32, 4, 64, 0, "float32"),
+    ("engine_prefill_fp32", 4, 64, 32, 32, 128, 0, "float32"),
+    ("sharded_prefill_fp32", 4, 512, 32, 32, 128, 0, "float32"),
     ("gqa_d64_fp32", 2, 256, 32, 4, 64, 0, "float32"),
     ("ragged_window_fp32", 2, 200, 8, 2, 128, 48, "float32"),
     ("d16_fp32", 2, 100, 4, 2, 16, 0, "float32"),
@@ -487,9 +526,10 @@ def ptxas_resources(log, name_of=None):
 
 
 def phase_k3_sass(info):
-    """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in each K3
+    """Tensor-core (HGMMA, HMMA) and TMA (UTMALDG) instructions in each K3
     instantiation's SASS, by ``cuobjdump`` beside ``nvcc``; every bf16
-    instantiation must have both."""
+    instantiation must have HGMMA and UTMALDG, every fp32 one HMMA (its
+    TF32 ``mma.sync``): no CUDA-core-only instantiation is left."""
     import re
 
     from repro_torch.kernels import build
@@ -502,15 +542,26 @@ def phase_k3_sass(info):
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_fwd_(bf16|fp32)ILi(\d+)E", line)
-            cur = counts.setdefault(f"{m[1]}_d{m[2]}", {"HGMMA": 0, "UTMALDG": 0}) if m else None
+            cur = (counts.setdefault(f"{m[1]}_d{m[2]}", {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0})
+                   if m else None)
         elif cur is not None:
             for op in cur:
-                cur[op] += op in line
-    emit("k3_sass", counts=counts)
-    lacking = [f"bf16_d{d}" for d in SUPPORTED_HEAD_DIMS
-               if min(counts.get(f"bf16_d{d}", {"HGMMA": 0}).values()) == 0]
+                cur[op] += bool(re.search(rf"\b{op}\b", line))
+    emit("k3_sass", counts=counts, resources=ptxas_resources(info.log, k3_kernel_name))
+    need = {"bf16": ("HGMMA", "UTMALDG"), "fp32": ("HMMA",)}
+    lacking = [f"{dt}_d{d}" for dt, ops in need.items() for d in SUPPORTED_HEAD_DIMS
+               if any(counts.get(f"{dt}_d{d}", {}).get(op, 0) == 0 for op in ops)]
     if lacking:
-        raise AssertionError(f"K3 bf16 instantiations without HGMMA or UTMALDG: {lacking}")
+        raise AssertionError(f"K3 instantiations without their tensor-core instructions "
+                             f"(bf16: HGMMA, UTMALDG; fp32: HMMA): {lacking}")
+
+
+def k3_kernel_name(mangled):
+    """``bf16_d128`` or ``fp32_d64`` from a mangled K3 kernel name."""
+    import re
+
+    m = re.search(r"flash_fwd_(bf16|fp32)ILi(\d+)E", mangled)
+    return f"{m[1]}_d{m[2]}" if m else mangled
 
 
 def gp_kernel_name(mangled):
@@ -564,25 +615,26 @@ def phase_gp_sass(info, probe):
 
 
 def ssd_kernel_name(mangled):
-    """``bf16_chunk_p64``, ``bf16_state_pass`` or ``fp32_p64`` from a
-    mangled K4 kernel name."""
+    """``bf16_chunk_p64``, ``fp32_chunk_p64``, ``bf16_state_pass`` or
+    ``fp32_state_pass`` from a mangled K4 kernel name (the chunk kernel's
+    second template argument, the state pass's one, is the dtype: ``f`` or
+    ``__nv_bfloat16``)."""
     import re
 
-    m = re.search(r"ssd_chunk_kernelILi(\d+)E", mangled)
+    m = re.search(r"ssd_chunk_kernelILi(\d+)E(f|13__nv_bfloat16)E", mangled)
     if m:
-        return f"bf16_chunk_p{m[1]}"
-    m = re.search(r"ssd_scan_kernelILi(\d+)E", mangled)
+        return f"{'fp32' if m[2] == 'f' else 'bf16'}_chunk_p{m[1]}"
+    m = re.search(r"ssd_state_kernelI(f|13__nv_bfloat16)E", mangled)
     if m:
-        return f"fp32_p{m[1]}"
-    if "fill_smem_kernel" in mangled:
-        return "shared_memory_fill"
-    return "bf16_state_pass" if "ssd_state_kernel" in mangled else mangled
+        return f"{'fp32' if m[1] == 'f' else 'bf16'}_state_pass"
+    return "shared_memory_fill" if "fill_smem_kernel" in mangled else mangled
 
 
 def phase_ssd_sass(info):
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each K4
     instantiation's SASS, by ``cuobjdump``, with its registers and spills
-    (``-Xptxas -v``); every bf16 chunk kernel (one per P) must have HMMA."""
+    (``-Xptxas -v``); every chunk kernel (one per P and dtype: bf16's
+    m16n8k16, fp32's TF32 m16n8k8) must have HMMA."""
     import re
 
     from repro_torch.kernels.ssd_scan import SUPPORTED_HEAD_DIMS
@@ -596,16 +648,18 @@ def phase_ssd_sass(info):
             for op in cur:
                 cur[op] += bool(re.search(rf"\b{op}\b", line))
     emit("ssd_sass", counts=counts, resources=ptxas_resources(info.log, ssd_kernel_name))
-    lacking = [f"bf16_chunk_p{p}" for p in SUPPORTED_HEAD_DIMS
-               if counts.get(f"bf16_chunk_p{p}", {"HMMA": 0})["HMMA"] == 0]
+    lacking = [f"{dt}_chunk_p{p}" for dt in ("bf16", "fp32") for p in SUPPORTED_HEAD_DIMS
+               if counts.get(f"{dt}_chunk_p{p}", {"HMMA": 0})["HMMA"] == 0]
     if lacking:
-        raise AssertionError(f"K4 bf16 instantiations without HMMA: {lacking}")
+        raise AssertionError(f"K4 chunk kernels without HMMA: {lacking}")
 
 
 def phase_parity():
     """K3 against its plain version on every case: at TOL (the plain version
     forms bf16 logits as the reference oracle does), and for bf16 also
-    against the plain version in fp32 on the same inputs at BF16_VS_FP32."""
+    against the plain version in fp32 on the same inputs at BF16_VS_FP32,
+    for fp32 against its mirror (three TF32 passes in plain PyTorch) at
+    TOL; launched twice on the same inputs, bitwise equal."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -613,18 +667,28 @@ def phase_parity():
     errs = {}
     for i, (name, b, s, h, hkv, d, window, dtype) in enumerate(main_path_cases() + EXTRA_CASES):
         q, k, v = qkv(b, s, h, hkv, d, dtype, seed=100 + i)
-        got = fa.flash_attention(q, k, v, causal=True, window=window).float()
+        first = fa.flash_attention(q, k, v, causal=True, window=window)
+        again = fa.flash_attention(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
+        repeat = bool(torch.equal(first, again))
+        got = first.float()
+        del again
         want = fa.flash_attention_plain(q, k, v, causal=True, window=window).float()
         err = (got - want).abs().max().item()
         tol = TOL[dtype]
-        ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
-        extra = {}
+        ok = bool(torch.allclose(got, want, atol=tol, rtol=tol)) and repeat
+        extra = {"bitwise_repeat": repeat}
+        if dtype == "float32":
+            mirror = fa.flash_attention_mirror_fp32(q, k, v, causal=True, window=window)
+            ok_m = bool(torch.allclose(got, mirror, atol=tol, rtol=tol))
+            extra.update(max_abs_err_vs_mirror=(got - mirror).abs().max().item(), ok_vs_mirror=ok_m)
+            ok = ok and ok_m
+            del mirror
         if dtype == "bfloat16":
             want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                               causal=True, window=window)
             ok32 = bool(torch.allclose(got, want32, **BF16_VS_FP32))
-            extra = dict(max_abs_err_vs_fp32=(got - want32).abs().max().item(),
+            extra.update(max_abs_err_vs_fp32=(got - want32).abs().max().item(),
                          tol_vs_fp32=BF16_VS_FP32, ok_vs_fp32=ok32)
             ok = ok and ok32
         emit("parity", kernel="flash_attention", case=name, shape=[b, s, h, hkv, d],
@@ -930,13 +994,21 @@ SSD_EXTRA_CASES = [
     ("h5_odd_heads", 6, 600, 5, 64, 128, 64, "bfloat16"),
     ("chunk8", 1, 100, 4, 64, 128, 8, "bfloat16"),           # 13 chunks of 8
     ("chunk75_odd", 4, 600, 48, 64, 128, 75, "bfloat16"),    # 8 chunks of 75
+    # the fp32 tensor-core path: serve_fp32's prefill, sharded_ssm's, and the
+    # bf16 cases' odd heads and chunks
+    ("engine_prefill_fp32", 4, 64, 48, 64, 128, 256, "float32"),
+    ("sharded_prefill_fp32", 4, 512, 48, 64, 128, 256, "float32"),
+    ("h5_odd_heads_fp32", 6, 600, 5, 64, 128, 64, "float32"),
+    ("chunk8_fp32", 1, 100, 4, 64, 128, 8, "float32"),
+    ("chunk75_odd_fp32", 4, 600, 48, 64, 128, 75, "float32"),
 ]
 
 
 def phase_ssd_parity():
     """K4 against its plain version: y at TOL[dtype] (fp32 at SSD_TOL), the
     fp32 final state at SSD_TOL, a bf16 y also against the plain version run
-    in fp32 on the same inputs at one bf16 rounding (BF16_VS_FP32), and two
+    in fp32 on the same inputs at one bf16 rounding (BF16_VS_FP32), an fp32
+    call against its mirror (three TF32 passes) at SSD_TOL, and two
     launches on the same inputs bitwise equal; every SM's shared memory is
     filled with NaN before each launch, which the kernel must not read."""
     import torch
@@ -968,6 +1040,14 @@ def phase_ssd_parity():
             extra = dict(max_abs_err_vs_fp32=(y.float() - want32).abs().max().item(),
                          tol_vs_fp32=BF16_VS_FP32, ok_vs_fp32=ok32)
             ok = ok and ok32
+        else:
+            my, mst = k4.ssd_scan_mirror(*args, chunk=q)
+            ok_m = bool(torch.allclose(y, my, atol=SSD_TOL, rtol=SSD_TOL)
+                        and torch.allclose(state, mst, atol=SSD_TOL, rtol=SSD_TOL))
+            extra = dict(max_abs_err_vs_mirror=max((y - my).abs().max().item(),
+                                                   (state - mst).abs().max().item()),
+                         ok_vs_mirror=ok_m)
+            ok = ok and ok_m
         ok = ok and repeat
         emit("parity", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q,
              n_chunks=-(-s // q), dtype=dtype, max_abs_err=err_y, state_max_abs_err=err_s,
@@ -1283,13 +1363,14 @@ def phase_moe_main(seed):
     return launches
 
 
-def ssd_bound(b, s, h, p, n, q, dtype):
+def ssd_bound(b, s, h, p, n, q, dtype, peak=None):
     """(bound_ms, bound_by) of one K4 call: x, a_log, dt, b, c read once, y
     and the fp32 state written once; operations as this call's chunks need
     them, C·Bᵀ once per (batch, chunk) (it is the same for every head), the
     rest per head: the causal S·X product, the incoming state's term and the
     state update, 2 flops a multiply-add, exp and the decay's 2 products as
-    3 per (i, j) pair.  Over the dtype's peak, as for K3."""
+    3 per (i, j) pair.  Over ``peak`` (by default the dtype's product rate),
+    as for K3."""
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * 2 * b * s * h + 4 * b * h * p * n
     flops = 0
@@ -1298,7 +1379,7 @@ def ssd_bound(b, s, h, p, n, q, dtype):
         pairs = L * (L + 1) // 2
         flops += b * 2 * n * pairs
         flops += b * h * (2 * p * pairs + 3 * pairs + 4 * n * p * L)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or PEAK_FLOPS[product_rate(dtype)])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1508,6 +1589,265 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
              "ms": rows["topk"]["ms"], "plain_ms": rows["topk"]["plain_ms"],
              "bound_ms": rows["topk"]["bound_ms"], "bound_by": rows["topk"]["bound_by"],
              "library_ms": None}]
+
+
+# fp32 K3 calls that the main paths make: launch.serve's defaults
+# (tinyllama-1.1b, batch 4, prompt 16), its llama2-7b prefill at prompt 64,
+# a long prompt, and train_sharded's prefill: (name, B, S, H, Hkv, d, window)
+FP32_K3_TIMED = [
+    ("serve_default_fp32", 4, 16, 32, 4, 64, 0),
+    ("engine_prefill_fp32", 4, 64, 32, 32, 128, 0),
+    ("long_prompt_fp32", 1, 2048, 32, 32, 128, 0),
+    ("sharded_prefill_fp32", 4, 512, 32, 32, 128, 0),
+]
+# fp32 K4 calls at mamba2-780m's widths (H 48, P 64, N 128, chunk 256):
+# serve_fp32's prefill, a 600-token prompt (3 chunks), sharded_ssm's prefill
+FP32_K4_TIMED = [("engine_prefill_fp32", 4, 64), ("prompt_s600_fp32", 1, 600),
+                 ("sharded_prefill_fp32", 4, 512)]
+
+
+def phase_fp32_times(errs=None, launches=None):
+    """Times of K3 and K4 in fp32 at FP32_K3_TIMED and FP32_K4_TIMED, beside
+    their plain versions and their bounds at the fp32 tensor-core rate
+    (``float32_tc``) and, for comparison, at the CUDA cores' 67 TFLOP/s.
+    K3: a loop of launches, one launch, the profiler's device time, and
+    SDPA in fp32, held first against the plain version at TOL["float32"]
+    (where it misses, its error is recorded and it is no yardstick); K4: a
+    loop, one launch and the time inside a CUDA graph.  Returns the two
+    kernels' entries of the ``kernels`` line (fp32 main-path errors and
+    launches from ``errs``/``launches`` where given)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+
+    rows = {}
+    for name, b, s, h, hkv, d, window in FP32_K3_TIMED:
+        q, k, v = qkv(b, s, h, hkv, d, "float32", seed=7)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, window=window)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, window=window)
+        library = sdpa(q, k, v, window)
+        want = plain()
+        err = (kernel() - want).abs().max().item()
+        lib_err = (library().transpose(1, 2) - want).abs().max().item()
+        same = lib_err <= TOL["float32"]
+        iters = 200 if s <= 256 else 20
+        bound_ms, bound_by = flash_bound(b, s, h, hkv, d, window, "float32")
+        rows[name] = dict(
+            ms=cuda_ms(kernel, iters), kernel_single_ms=single_ms(kernel),
+            plain_ms=cuda_ms(plain, iters), library_ms=cuda_ms(library, iters) if same else None,
+            library_max_abs_err=lib_err, library_same_function=same,
+            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_cuda_cores=flash_bound(b, s, h, hkv, d, window, "float32",
+                                            peak=PEAK_FLOPS["float32"])[0],
+            max_abs_err=err,
+            **device_times(kernel=kernel, plain=plain,
+                           **({"library": library} if same else {})))
+        emit("time", kernel="flash_attention", case=name, shape=[b, s, h, hkv, d],
+             dtype="float32", window=window, tiles=fa.tiles(d, torch.float32),
+             **rows[name], **({} if same else {"library": "not the same function"}))
+    cfg = get_arch(SSM_ARCH)
+    h, p, n, chunk = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    for name, b, s in FP32_K4_TIMED:
+        args = ssd_inputs(b, s, h, p, n, "float32", seed=7)
+        q = k4.clamp_chunk(chunk, s)
+
+        def kernel():
+            return k4.ssd_scan(*args, chunk=chunk)
+
+        def plain():
+            return k4.ssd_scan_plain(*args, chunk=q)
+        (y, st), (wy, wst) = kernel(), plain()
+        err = max((y - wy).abs().max().item(), (st - wst).abs().max().item())
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, q, "float32")
+        rows[f"k4_{name}"] = dict(
+            ms=cuda_ms(kernel, 50), kernel_single_ms=single_ms(kernel),
+            kernel_graph_ms=graph_ms(kernel), plain_ms=cuda_ms(plain, 20),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_cuda_cores=ssd_bound(b, s, h, p, n, q, "float32",
+                                          peak=PEAK_FLOPS["float32"])[0],
+            max_abs_err=err, **device_times(kernel=kernel, plain=plain))
+        emit("time", kernel="ssd_scan", case=name, shape=[b, s, h, p, n], chunk=q,
+             dtype="float32", grid=k4.schedule(b, s, h, p, n, q)["grids"],
+             smem_bytes=k4.smem_bytes(p, n, q, torch.float32), **rows[f"k4_{name}"])
+    errs, launches = errs or {}, launches or {}
+    k3, k4m = rows["engine_prefill_fp32"], rows["k4_engine_prefill_fp32"]
+    return [{"name": "flash_attention_fp32", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:31",
+             "launches": launches.get("flash_attention_fp32"),
+             "max_abs_err": errs.get("flash_attention_fp32", k3["max_abs_err"]),
+             "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+             "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+            {"name": "ssd_scan_fp32", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:26",
+             "launches": launches.get("ssd_scan_fp32"),
+             "max_abs_err": errs.get("ssd_scan_fp32", k4m["max_abs_err"]),
+             "ms": k4m["ms"], "plain_ms": k4m["plain_ms"], "bound_ms": k4m["bound_ms"],
+             "bound_by": k4m["bound_by"], "library_ms": None}]
+
+
+# launch.serve at its defaults (batch 4, float32, --attn-impl flash,
+# --ssd-impl cuda) but these: the fp32 paths of K3 and K4 as a user meets them
+SERVE_FP32_ARGV = ["--prompt-len", "64", "--gen", "8"]
+SERVE_FP32_ARCHS = (ARCH, SSM_ARCH)
+SERVE_FP32_RTOL = 1e-5        # prefill logits against the plain paths, over max |logit|
+# ... unless the same model with K3 replaced by its plain version in
+# float64 (rounded to fp32) is already farther from the plain paths: over
+# 32 fp32 layers of random weights any two attentions that are not bitwise
+# equal end about 1.2e-5 of max |logit| apart (float64 attention 1.26e-5,
+# the first port's fp32 FMA kernel 1.33e-5; PERF.md §6, PR 23), so there
+# the kernel path may be no farther from the plain paths than exact
+# attention in the kernel's place is.  A model without attention (K4
+# only) is held to SERVE_FP32_RTOL alone.
+
+
+def phase_serve_fp32(seed):
+    """``repro_torch.launch.serve.main`` at its defaults but ``--arch``,
+    ``--prompt-len 64`` and ``--gen 8``: llama2-7b at full width and depth
+    (32 layers, fp32, about 27 GB of weights), then mamba2-780m (48 layers).
+    K3's and K4's counts are set to 0 just before ``main`` and read just
+    after: one prefill must launch K3 once per attention layer and K4 once
+    per Mamba layer.  The first K3 and the first K4 call, their operands
+    and outputs recorded, are held against their plain versions
+    (TOL["float32"], SSD_TOL); the prefill logits of the same weights on
+    the plain paths (``attn_impl="xla"``, ``ssd_impl="jnp"``) within
+    SERVE_FP32_RTOL of max |logit|, or, with attention, no farther from
+    them than the same weights with K3 replaced by its plain version in
+    float64 (``exact_vs_plain_paths``: the floor of fp32 rounding that the
+    plain paths themselves bring); prefill ms, decode ms per token (CUDA
+    events, as ``serve_times``) and peak memory.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models as models_pkg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, mamba2
+    from repro_torch.serve.engine import pad_caches
+
+    out = {}
+    for arch in SERVE_FP32_ARCHS:
+        t_phase = time.perf_counter()
+        made, first = [], {}
+        real_model, real_k3, real_k4 = models_pkg.Model, attention.flash_attention, mamba2.ssd_scan
+
+        def capture(*args, **kw):
+            made.append(real_model(*args, **kw))
+            return made[-1]
+
+        def recording(key, fn):
+            def call(*args, **kw):
+                res = fn(*args, **kw)
+                if key not in first:
+                    outs = res if isinstance(res, tuple) else (res,)
+                    first[key] = ([a.clone() for a in args], kw, [o.clone() for o in outs])
+                return res
+            return call
+        models_pkg.Model = capture
+        attention.flash_attention = recording("k3", real_k3)
+        mamba2.ssd_scan = recording("k4", real_k4)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            fa.flash_attention.launches = k4.ssd_scan.launches = 0
+            t0 = time.perf_counter()
+            res = serve.main(["--arch", arch, *SERVE_FP32_ARGV])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = {"flash_attention": fa.flash_attention.launches,
+                        "ssd_scan": k4.ssd_scan.launches}
+            # ---- end of the counted run
+        finally:
+            models_pkg.Model, attention.flash_attention, mamba2.ssd_scan = (
+                real_model, real_k3, real_k4)
+        peak = torch.cuda.max_memory_allocated()
+        model, = made
+        cfg = model.cfg
+        specs = cfg.layer_specs()
+        want = {"flash_attention": sum(sp.mixer in ("attn", "attn_local") for sp in specs),
+                "ssd_scan": sum(sp.mixer == "mamba" for sp in specs)}
+
+        kernel_errs = {}
+        if "k3" in first:
+            (q, k, v), kw, (o,) = first.pop("k3")
+            o_plain = fa.flash_attention_plain(q, k, v, causal=kw["causal"], window=kw["window"])
+            kernel_errs["k3"] = ((o - o_plain).abs().max().item(), bool(torch.allclose(
+                o, o_plain, atol=TOL["float32"], rtol=TOL["float32"])), list(q.shape))
+            del q, k, v, o, o_plain
+        if "k4" in first:
+            args, kw, (y, st) = first.pop("k4")
+            y_plain, st_plain = k4.ssd_scan_plain(
+                *args, chunk=k4.clamp_chunk(kw["chunk"], args[0].shape[1]))
+            kernel_errs["k4"] = (max((y - y_plain).abs().max().item(),
+                                     (st - st_plain).abs().max().item()),
+                                 bool(torch.allclose(y, y_plain, atol=SSD_TOL, rtol=SSD_TOL)
+                                      and torch.allclose(st, st_plain, atol=SSD_TOL,
+                                                         rtol=SSD_TOL)),
+                                 list(args[0].shape))
+            del args, y, st, y_plain, st_plain
+
+        # the same prompt as main's, on the plain paths of the same weights,
+        # and (with attention) with K3's plain version in float64 in its place
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+        plain = same_weights(model, dataclasses.replace(model.flags, attn_impl="xla",
+                                                        ssd_impl="jnp"))
+
+        def exact_k3(q, k, v, **kw):
+            return fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                            causal=kw["causal"], window=kw["window"]).float()
+        floors = {}
+        with torch.inference_mode():
+            lk, _ = model.prefill({"tokens": tokens})
+            lp, _ = plain.prefill({"tokens": tokens})
+            if want["flash_attention"]:
+                attention.flash_attention = exact_k3
+                try:
+                    le, _ = model.prefill({"tokens": tokens})
+                finally:
+                    attention.flash_attention = real_k3
+                floors = {"exact_vs_plain_paths": logits_gap(le, lp),
+                          "kernel_vs_exact": logits_gap(lk, le)}
+                del le
+        gap = logits_gap(lk, lp)
+        allowed = max([SERVE_FP32_RTOL * gap["max_abs_logit"]]
+                      + [f["max_abs_diff"] for k, f in floors.items() if k.startswith("exact")])
+        del plain, lk, lp
+        with torch.inference_mode():
+            prefill_ms = cuda_ms(lambda: model.prefill({"tokens": tokens}), iters=5, warmup=1)
+            _, caches = model.prefill({"tokens": tokens})
+            caches = pad_caches(caches, 64, 64 + ENGINE_NEW + 1)
+            tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+            steps = iter(range(64, 64 + ENGINE_NEW))
+            decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
+                                iters=ENGINE_NEW - 4, warmup=2)
+        del caches
+        ok = (launches == want and all(e[1] for e in kernel_errs.values())
+              and len(kernel_errs) == sum(n > 0 for n in want.values()) and gap["finite"]
+              and gap["max_abs_diff"] <= allowed and res.tokens.shape == (4, 8))
+        emit("serve_fp32", arch=cfg.name, argv=["--arch", arch, *SERVE_FP32_ARGV],
+             n_layers=cfg.n_layers, dtype=str(model.flags.dtype), launches=launches,
+             expected_launches=want,
+             **{f"{key}_first_call": {"shape": e[2], "max_abs_err_vs_plain": e[0], "ok": e[1]}
+                for key, e in kernel_errs.items()},
+             kernel_vs_plain_paths=gap, **floors, rtol=SERVE_FP32_RTOL,
+             allowed_max_abs_diff=allowed, main_seconds=main_s,
+             prefill_ms=prefill_ms, decode_ms_per_token=decode_ms, max_memory_allocated=peak,
+             phase_seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line(), ok=ok)
+        out[arch] = launches if ok else None
+        del model, made, res
+        torch.cuda.empty_cache()
+    failed = [arch for arch, launches in out.items() if launches is None]
+    if failed:
+        raise AssertionError(f"serve_fp32 {failed}: launches, the first kernel calls or the "
+                             "logits against the plain paths are off")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3588,10 +3928,12 @@ def phase_gp_times(errs, launches, exp_f64):
     return out
 
 
-def run_only(names):
+def run_only(names, infos):
     """``--only a,b``: the build, then only the named phases (for iterating
     on one phase; prints no result line)."""
     phases = {
+        "k3_sass": lambda: phase_k3_sass(infos["flash_attention"]),
+        "ssd_sass": lambda: phase_ssd_sass(infos["ssd_scan"]),
         "parity": phase_parity, "ssd_parity": phase_ssd_parity, "topk_parity": phase_topk_parity,
         "main_path": lambda: phase_main_path(N_LAYERS, SEED),
         "main_ssm": lambda: phase_ssm_main(SEED), "main_moe": lambda: phase_moe_main(SEED),
@@ -3602,6 +3944,8 @@ def run_only(names):
         "explore_train": lambda: phase_explore_train(tempfile.mkdtemp(prefix="xtrain")),
         "train_sharded": lambda: phase_train_sharded(SEED, tempfile.mkdtemp(prefix="shard")),
         "sharded_ssm": lambda: phase_sharded_ssm(SEED),
+        "fp32_times": phase_fp32_times,
+        "serve_fp32": lambda: phase_serve_fp32(SEED),
         "examples": lambda: phase_examples(tempfile.mkdtemp(prefix="examples")),
     }
     for name in names:
@@ -3639,7 +3983,7 @@ def main(only=None):
     for name, info in infos.items():
         print(f"[build] {name} -Xptxas -v:\n{info.log.strip()}", flush=True)
     if only:
-        return run_only(only)
+        return run_only(only, infos)
     phase_k3_sass(infos["flash_attention"])
     exp_f64 = phase_gp_sass(infos["gp_ops"], probe)
     phase_ssd_sass(infos["ssd_scan"])
@@ -3652,6 +3996,7 @@ def main(only=None):
     phase_small_reference()
     ssm_launches = phase_ssm_main(SEED)
     moe_launches = phase_moe_main(SEED)
+    serve_fp32 = phase_serve_fp32(SEED)
     frontend_launches = phase_frontends_main(SEED)
     gp_errs = phase_gp_parity()
     phase_search_small()
@@ -3667,14 +4012,22 @@ def main(only=None):
         sharded_ssm = phase_sharded_ssm(SEED)
         examples_k5 = phase_examples(tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
-               + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe))
+               + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe)
+               + phase_fp32_times(
+                   {"flash_attention_fp32": errs["engine_prefill_fp32"],
+                    "ssd_scan_fp32": ssd_errs["engine_prefill_fp32"]},
+                   {"flash_attention_fp32": serve_fp32[ARCH]["flash_attention"],
+                    "ssd_scan_fp32": serve_fp32[SSM_ARCH]["ssd_scan"]}))
     paths = {"flash_attention": {ARCH: launches["flash_attention"],
-                                 MOE_ARCH: moe_launches["flash_attention"], **frontend_launches,
-                                 f"{ARCH} sharded prefill ({SHARDED_PREFILL_LAYERS} layers)":
-                                     sharded["flash_attention"],
-                                 f"{ARCH} sharded prefill (sp)": sharded["flash_attention_sp"]},
-             "ssd_scan": {f"{SSM_ARCH} serving": ssm_launches["ssd_scan"],
-                          f"{SSM_ARCH} sharded prefill (sp)": sharded_ssm},
+                                 MOE_ARCH: moe_launches["flash_attention"], **frontend_launches},
+             "flash_attention_fp32": {
+                 f"{ARCH} serve_fp32": serve_fp32[ARCH]["flash_attention"],
+                 f"{ARCH} sharded prefill ({SHARDED_PREFILL_LAYERS} layers)":
+                     sharded["flash_attention"],
+                 f"{ARCH} sharded prefill (sp)": sharded["flash_attention_sp"]},
+             "ssd_scan": {f"{SSM_ARCH} serving": ssm_launches["ssd_scan"]},
+             "ssd_scan_fp32": {f"{SSM_ARCH} serve_fp32": serve_fp32[SSM_ARCH]["ssd_scan"],
+                               f"{SSM_ARCH} sharded prefill (sp)": sharded_ssm},
              "topk_gating": {f"{MOE_ARCH} serving": moe_launches["topk_gating"],
                              f"{MOE_ARCH} training ({MOE_TRAIN_LAYERS} layers)":
                                  train_launches["topk_gating"],

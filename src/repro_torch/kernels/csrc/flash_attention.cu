@@ -12,10 +12,11 @@
 // (the ragged sequence edge is masked by the real length S).
 //
 // What bounds it on an H100: at the serving path's prompts (S = 64) the
-// bytes (q, k, v read once, o written once: about 2 MB, 0.6 us at 3.35 TB/s)
-// and the latency of one short pass; at long prompts the operations
-// (4 * H * D flops per attended (query, key) pair, 0.035 ms at
-// (1, 2048, 32, 32, 128) at 989 TFLOP/s).
+// bytes (q, k, v read once, o written once: about 2 MB, 0.6 us at 3.35 TB/s
+// in bf16) and the latency of one short pass; at long prompts the
+// operations (4 * H * D flops per attended (query, key) pair, 0.035 ms at
+// (1, 2048, 32, 32, 128) at 989 TFLOP/s in bf16, 0.208 ms in fp32 at three
+// TF32 passes).
 //
 // bf16 (the serving path): one block per (64-row q tile, batch * head), the
 // q tiles heaviest-first.  Warps 0-3 are one consumer warpgroup; warp 4 is
@@ -41,10 +42,37 @@
 // keys, to keep the S, P and O fragments in registers (83,016 B of shared
 // memory at D = 128: two blocks per SM).
 //
-// fp32 (tests and the small fp32 reference, not the serving path): the
-// CUDA-core kernel of the first port, 64 x 64 tiles staged in shared memory
-// as fp32, scores and P V as fp32 FMAs.  TF32 tensor cores would miss the
-// fp32 tolerance (2e-5).
+// fp32 (launch.serve's default dtype, the fp32 train and sharded prefills):
+// tensor cores in three TF32 passes.  It replaces the first port's CUDA-core
+// kernel (fp32 FMAs, 67 TFLOP/s at most, one block of 4 warps an SM at
+// D = 128, scalar loads between barriers).  One TF32 product keeps 11
+// significant bits and misses the fp32 gate (2e-5); three, hi·hi + hi·lo +
+// lo·hi with hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), keep about 22,
+// at 495 / 3 = 165 TFLOP/s: that rate bounds a long prompt, the bytes a
+// short one.  mma.sync m16n8k8 rather than wgmma, which takes TF32 only
+// K-major: in P V, V's keys are K and its head dim is the contiguous axis.
+// One block per (64-row q tile, batch * head), 8 warps in two groups of 4;
+// warp w owns rows 16 (w % 4) .. + 15, and group w / 4 one half of the
+// keys of every K/V tile, with its own running max, sum and O; the second
+// group's are merged into the first's at the end through shared memory,
+// in a fixed order.  Each thread copies Q and each K/V tile with 16-byte
+// cp.async into a two-stage ring (the next tile's copy runs under this
+// one's math) and then splits the chunks it copied: the high part in
+// place, the low part into a plane beside it, so every staged element is
+// split once (Q, pre-scaled by D**-0.5, once per block).  S = Q Kᵀ takes
+// both operands as stored (ldmatrix of 8 x 4 fp32 tiles); P V takes the
+// score accumulator as its A fragment by ordering each step's 8 keys
+// 0, 2, 4, 6, 1, 3, 5, 7, and V's B fragment as two scalar loads.  Rows of
+// D + 4 floats keep every fragment load free of bank conflicts.  The tiles
+// (Tile<D>): 32 keys a tile at D >= 64, so that D = 128 (Q's two planes,
+// 67,584 B, and two stages of four 32-key planes, 135,168 B) fits one
+// block of 8 warps an SM, and D = 64 two blocks; 64 keys at D <= 32, where
+// they fit as well.  The tensor cores round their fp32 sums toward zero,
+// so a chain of 48 products into one accumulator (S at D = 128) drifts:
+// each 8-deep step of S, and each tile's P V, is summed alone and added to
+// the running sum on the CUDA cores, rounded to nearest (a third of the
+// error against the plain version; 254 registers at D = 128, no spills).
+// Every sum has a fixed order and there are no atomics.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -57,160 +85,350 @@ constexpr float NEG_INF = -1e30f;  // the reference kernel's mask value
 constexpr int MAX_DEVICES = 64;
 
 // ---------------------------------------------------------------------------
-// fp32: the CUDA-core kernel
+// fp32: tensor cores in three TF32 passes (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
 namespace fp32 {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BKV = 64;   // keys per KV tile
-constexpr int NT = 128;   // threads per block: 16 row groups x 8 lanes
+constexpr int BM = 64;                // query rows per block: 16 per warp of a group
+constexpr int WARPS = 8;              // two groups of 4 warps, each on half of every K/V tile
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;             // K/V ring depth
 
 template <int D>
-constexpr int smem_bytes() {
-  // sQ, sK: rows of D+1 floats; sV: rows of D; sP: rows of BKV+1.
-  return (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1)) * 4;
+struct Tile {
+  static constexpr int BN = D <= 32 ? 64 : 32;  // keys per K/V tile (both groups)
+  static constexpr int HB = BN / 2;             // keys per group
+  static constexpr int LD = D + 4;              // floats per shared row (conflict-free fragments)
+  static constexpr int PLANE = BN * LD;         // one K or V plane of a stage
+  static constexpr int Q_FLOATS = 2 * BM * LD;  // Q high, Q low
+  static constexpr int STAGE_FLOATS = 4 * PLANE;  // K high, K low, V high, V low
+  static constexpr int SMEM = (Q_FLOATS + STAGES * STAGE_FLOATS) * 4;
+  static_assert(D % 8 == 0 && HB % 16 == 0, "fragments of 8 dims and pairs of 8-key tiles");
+  static_assert(BM * LD + 2 * BM <= STAGES * STAGE_FLOATS, "the merge fits the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; valid = false zero-fills (no global read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 4 fp32 tiles (8 rows of 16 bytes each, row addresses from lanes
+// 8i .. 8i+7): register i holds element [lane / 4][lane % 4] of tile i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x as a TF32 high part and the TF32 rounding of the rest: hi + lo is x to
+// about 2^-22 of |x|.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d = a (16x8, row) * b (8x8, col), TF32 in, fp32 out (no accumulator in).
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+// d (= when `fresh`, else +=) a b in three TF32 passes, the small terms
+// first: lo·hi, hi·lo, hi·hi.
+template <bool fresh>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  if constexpr (fresh)
+    mma_zero(d, al, bh0, bh1);
+  else
+    mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+// The tensor cores round an accumulation toward zero, so a long chain of
+// products into one accumulator drifts.  Each 8-deep step (or tile) is
+// summed alone and added to the running sum on the CUDA cores (rounded to
+// nearest).
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
 flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int S, int H,
                int Hkv, int causal, int window, float scale) {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  constexpr int DJ = D / 8;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * (D + 1);
-  float* sV = sK + BKV * (D + 1);
-  float* sP = sV + BKV * D;
+  using T = Tile<D>;
+  constexpr int BN = T::BN, HB = T::HB, LD = T::LD, PLANE = T::PLANE;
+  constexpr int NKT = HB / 8;   // 8-key tiles of a group's part
+  constexpr int NDT = D / 8;    // 8-column tiles of the head dim
+  constexpr int C4 = D / 4;     // 16-byte chunks of a row
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                      // Q high; Q low BM * LD floats on
+  float* sKV = smem + T::Q_FLOATS;       // per stage: K high, K low, V high, V low
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / (H / Hkv);
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // row group: rows 4*rg .. 4*rg+3 of the tile
-  const int cl = tid & 7;   // lane within the row group
+  const int q0 = qt * BM;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int grp = w >> 2;            // keys grp * HB .. grp * HB + HB - 1 of every tile
+  const int r0 = 16 * (w & 3);       // the warp's 16 rows of the q tile
+  const int g = lane >> 2, t4 = lane & 3;
 
-  const long q_stride = (long)H * D;     // between consecutive positions
+  const long q_stride = (long)H * D;  // between consecutive positions
   const long kv_stride = (long)Hkv * D;
   const float* qb = q + (long)b * S * q_stride + (long)h * D;
   const float* kb = k + (long)b * S * kv_stride + (long)hk * D;
   const float* vb = v + (long)b * S * kv_stride + (long)hk * D;
   float* ob = o + (long)b * S * q_stride + (long)h * D;
 
-  // Q tile, pre-scaled as the reference kernel does; rows past S are zero.
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, c = e % D, s = q0 + r;
-    sQ[r * (D + 1) + c] = s < S ? qb[s * q_stride + c] * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
   // KV tiles that any row of this q tile can reach.
-  const int last_q = min(q0 + BQ, S) - 1;
+  const int last_q = min(q0 + BM, S) - 1;
   const int kv_hi = causal ? last_q : S - 1;
   const int kv_lo = window ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / BN;
+  const int n_tiles = kv_hi / BN - t_lo + 1;
 
-  for (int t = kv_lo / BKV; t <= kv_hi / BKV; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the previous tile's sK / sV / sP reads are done
-    for (int e = tid; e < BKV * D; e += NT) {
-      const int r = e / D, c = e % D, s = k0 + r;
+  // Each thread copies fixed 16-byte chunks and later splits those same
+  // chunks, so its own cp.async writes are all it reads before the barrier.
+  // Rows past S are zero-filled.
+  auto stage_kv = [&](int j) {
+    float* st = sKV + (j % STAGES) * T::STAGE_FLOATS;
+    const int k0 = (t_lo + j) * BN;
+    for (int e = tid; e < BN * C4; e += THREADS) {
+      const int r = e / C4, c = e - r * C4, s = k0 + r;
       const bool in = s < S;
-      sK[r * (D + 1) + c] = in ? kb[s * kv_stride + c] : 0.f;
-      sV[r * D + c] = in ? vb[s * kv_stride + c] : 0.f;
+      cp_async16(smem_u32(st + r * LD + 4 * c), in ? kb + s * kv_stride + 4 * c : kb, in);
+      cp_async16(smem_u32(st + 2 * PLANE + r * LD + 4 * c), in ? vb + s * kv_stride + 4 * c : vb,
+                 in);
     }
+    cp_async_commit();
+  };
+  // x * mul -> its high part in place, its low part `lo` floats further.
+  auto split_rows = [&](float* base, int rows, int lo, float mul) {
+    for (int e = tid; e < rows * C4; e += THREADS) {
+      const int r = e / C4, c = e - r * C4;
+      float4* p = reinterpret_cast<float4*>(base + r * LD + 4 * c);
+      const float4 x = *p;
+      uint4 hi, lo4;
+      split(x.x * mul, hi.x, lo4.x);
+      split(x.y * mul, hi.y, lo4.y);
+      split(x.z * mul, hi.z, lo4.z);
+      split(x.w * mul, hi.w, lo4.w);
+      *reinterpret_cast<uint4*>(p) = hi;
+      *reinterpret_cast<uint4*>(base + lo + r * LD + 4 * c) = lo4;
+    }
+  };
+
+  // The Q tile joins tile 0's copy group; pre-scaled as the reference kernel does.
+  for (int e = tid; e < BM * C4; e += THREADS) {
+    const int r = e / C4, c = e - r * C4, s = q0 + r;
+    cp_async16(smem_u32(sQ + r * LD + 4 * c), s < S ? qb + s * q_stride + 4 * c : qb, s < S);
+  }
+  stage_kv(0);
+
+  float acc[NDT][4];
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows r0 + g, r0 + g + 8
+  float l[2] = {0.f, 0.f};              // this thread's share of their running sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage_kv(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    float* st = sKV + (j % STAGES) * T::STAGE_FLOATS;
+    if (j == 0) split_rows(sQ, BM, BM * LD, scale);
+    split_rows(st, BN, PLANE, 1.f);
+    split_rows(st + 2 * PLANE, BN, PLANE, 1.f);
     __syncthreads();
 
-    // Scores S = (q * scale) . k for this thread's 4 x 8 entries.
-    float sc[4][8];
+    // S = Q Kᵀ on this group's HB keys: A = Q rows (ldmatrix), B = K rows
+    // (keys x head dim, K-major as stored: ldmatrix, two 8-key tiles at once).
+    const float* kh = st + grp * HB * LD;
+    float sc[NKT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < NKT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float qv[4], kv[8];
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(4 * rg + i) * (D + 1) + kk];
+    for (int ks = 0; ks < NDT; ++ks) {
+      uint32_t ah[4], al[4];
+      const int qoff = (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * ks + 4 * (lane >> 4);
+      ldsm_x4(ah, smem_u32(sQ + qoff));
+      ldsm_x4(al, smem_u32(sQ + BM * LD + qoff));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = sK[(cl + 8 * j) * (D + 1) + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      for (int nt = 0; nt < NKT; nt += 2) {
+        uint32_t bh[4], bl[4];
+        const int koff = (8 * nt + (lane & 7) + 8 * (lane >> 4)) * LD + 8 * ks +
+                         4 * ((lane >> 3) & 1);
+        ldsm_x4(bh, smem_u32(kh + koff));
+        ldsm_x4(bl, smem_u32(kh + PLANE + koff));
+        float part[2][4];
+        mma3<true>(part[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma3<true>(part[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        add4(sc[nt], part[0]);
+        add4(sc[nt + 1], part[1]);
+      }
     }
 
-    // Mask, then the online-softmax update of each of the 4 rows.
+    // Mask where the part straddles the diagonal, the window's edge or S;
+    // then the online softmax of rows r0 + g (hf 0) and r0 + g + 8 (hf 1).
+    const int k0 = (t_lo + j) * BN + grp * HB;
+    if ((causal && k0 + HB - 1 > q0 + r0) || (window && q0 + r0 + 15 - k0 >= window) ||
+        k0 + HB > S) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * rg + i;
-      bool ok[8];
-      float mx = NEG_INF;
+      for (int nt = 0; nt < NKT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + cl + 8 * j;
-        ok[j] = col < S && (!causal || col <= row) && (!window || row - col < window);
-        if (ok[j]) mx = fmaxf(mx, sc[i][j]);
-      }
+        for (int x = 0; x < 4; ++x) {
+          const int row = q0 + r0 + g + 8 * (x >> 1), col = k0 + 8 * nt + 2 * t4 + (x & 1);
+          const bool ok = col < S && (!causal || col <= row) && (!window || row - col < window);
+          if (!ok) sc[nt][x] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NKT; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * hf], sc[nt][2 * hf + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+      const float m_new = fmaxf(m[hf], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // nothing unmasked yet
+      const float alpha = expf(m[hf] - m_use);
+      m[hf] = m_new;
+      float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // A masked entry contributes 0.  (The reference adds exp(0) for a
-        // row with nothing unmasked yet; its alpha later zeroes that, so
-        // the results agree for every row that attends to any key.)
-        const float p = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        sum += p;
-        sP[(4 * rg + i) * (BKV + 1) + cl + 8 * j] = p;
+      for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // A masked entry contributes 0.
+          sc[nt][2 * hf + e] = expf(sc[nt][2 * hf + e] - m_use);
+          rs += sc[nt][2 * hf + e];
+        }
+      l[hf] = l[hf] * alpha + rs;
+#pragma unroll
+      for (int nt = 0; nt < NDT; ++nt) {
+        acc[nt][2 * hf] *= alpha;
+        acc[nt][2 * hf + 1] *= alpha;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
 
-    // acc += P @ V for this thread's 4 rows x DJ columns.
-#pragma unroll 2
-    for (int j = 0; j < BKV; ++j) {
-      float p[4];
+    // O += P V.  The 8 keys of a step are taken in the order 0, 2, 4, 6,
+    // 1, 3, 5, 7 (A column t4 is key 2 t4, column t4 + 4 key 2 t4 + 1), so
+    // the score accumulator is already the A fragment, and V's B fragment is
+    // rows 2 t4 and 2 t4 + 1 of the stored (keys x head dim) tile.
+    const float* vh = st + 2 * PLANE + grp * HB * LD + 2 * t4 * LD + g;
+    uint32_t ph[NKT][4], pl[NKT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(4 * rg + i) * (BKV + 1) + j];
+    for (int kk = 0; kk < NKT; ++kk) {
+      split(sc[kk][0], ph[kk][0], pl[kk][0]);
+      split(sc[kk][2], ph[kk][1], pl[kk][1]);
+      split(sc[kk][1], ph[kk][2], pl[kk][2]);
+      split(sc[kk][3], ph[kk][3], pl[kk][3]);
+    }
+    // This tile's P V for each 8 columns summed alone, then added to O.
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) {
-        const float vv = sV[j * D + cl + 8 * c];
+    for (int nt = 0; nt < NDT; ++nt) {
+      float part[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      for (int kk = 0; kk < NKT; ++kk) {
+        const float* v0 = vh + 8 * kk * LD + 8 * nt;
+        const uint32_t bh0 = __float_as_uint(v0[0]), bh1 = __float_as_uint(v0[LD]);
+        const uint32_t bl0 = __float_as_uint(v0[PLANE]), bl1 = __float_as_uint(v0[PLANE + LD]);
+        if (kk == 0)
+          mma3<true>(part, ph[kk], pl[kk], bh0, bh1, bl0, bl1);
+        else
+          mma3<false>(part, ph[kk], pl[kk], bh0, bh1, bl0, bl1);
+      }
+      add4(acc[nt], part);
+    }
+    __syncthreads();  // the stage is free for tile j + 2
+  }
+
+  // The row sums over the 4 threads that share a row; then the second
+  // group's (m, l, O) through shared memory into the first group's.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+  }
+  float* sO = sKV;
+  float* sM = sO + BM * LD;
+  float* sL = sM + BM;
+  if (grp == 1) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + g + 8 * hf;
+#pragma unroll
+      for (int nt = 0; nt < NDT; ++nt)
+        *reinterpret_cast<float2*>(sO + row * LD + 8 * nt + 2 * t4) =
+            make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      if (t4 == 0) {
+        sM[row] = m[hf];
+        sL[row] = l[hf];
       }
     }
   }
-
+  __syncthreads();
+  if (grp == 1) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = r0 + g + 8 * hf;
+    if (q0 + row >= S) continue;
+    const float m1 = sM[row];
+    const float mm = fmaxf(m[hf], m1);
+    const float mu = mm == -INFINITY ? 0.f : mm;
+    const float a0 = expf(m[hf] - mu), a1 = expf(m1 - mu);
+    const float denom = fmaxf(l[hf] * a0 + sL[row] * a1, 1e-30f);
+    float* orow = ob + (long)(q0 + row) * q_stride + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) ob[row * q_stride + cl + 8 * c] = acc[i][c] / denom;
+    for (int nt = 0; nt < NDT; ++nt) {
+      const float2 other = *reinterpret_cast<const float2*>(sO + row * LD + 8 * nt + 2 * t4);
+      *reinterpret_cast<float2*>(orow + 8 * nt) =
+          make_float2((acc[nt][2 * hf] * a0 + other.x * a1) / denom,
+                      (acc[nt][2 * hf + 1] * a0 + other.y * a1) / denom);
+    }
   }
 }
 
@@ -697,15 +915,16 @@ namespace fp32 {
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
            int Hkv, int causal, int window, float scale, int dev, cudaStream_t stream) {
+  using T = Tile<D>;
   static bool attr_set[MAX_DEVICES];
   if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+        flash_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
     attr_set[dev] = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_fp32<D><<<grid, NT, smem_bytes<D>(), stream>>>(
+  const dim3 grid((S + BM - 1) / BM, B * H);
+  flash_fwd_fp32<D><<<grid, THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, causal, window, scale);
   return (int)cudaGetLastError();
@@ -735,7 +954,8 @@ void config_of(int dtype, int* out) {
     const int cfg[5] = {T::BM, T::BN, hopper::THREADS, T::STAGES, T::SMEM};
     for (int i = 0; i < 5; ++i) out[i] = cfg[i];
   } else {
-    const int cfg[5] = {fp32::BQ, fp32::BKV, fp32::NT, 1, fp32::smem_bytes<D>()};
+    using F = fp32::Tile<D>;
+    const int cfg[5] = {fp32::BM, F::BN, fp32::THREADS, fp32::STAGES, F::SMEM};
     for (int i = 0; i < 5; ++i) out[i] = cfg[i];
   }
 }

@@ -10,22 +10,30 @@ in the model's (B, S, H, d) layout, so there is no transpose and no padding
 copy: the ragged sequence edge is masked by the real length.
 
 What bounds it on an H100: at the serving path's shapes (B <= 4, S = 64,
-H = 32, d = 128) the bytes (about 2 MB, ~0.6 us at 3.35 TB/s) and the
-latency of one short pass; at long prompts the operations (4 * H * d flops
-per attended pair, at the bf16 tensor-core peak).
+H = 32, d = 128) the bytes (about 2 MB in bf16, ~0.6 us at 3.35 TB/s) and
+the latency of one short pass; at long prompts the operations (4 * H * d
+flops per attended pair, at the bf16 tensor-core peak, or in fp32 at three
+TF32 passes: 495 / 3 TFLOP/s).
 
-bf16, the serving path, runs on the tensor cores: one warpgroup computes
-S = Q K^T with ``wgmma`` on a 64-row q tile, keeps the online softmax in
-fp32 registers, and adds P V as two ``wgmma``s from registers, on
-P_hi = bf16(P) and P_lo = bf16(P - P_hi), so the output stays within one
-bf16 rounding of the fp32 computation; the next tile's softmax runs while
-P V is on the tensor cores.  A producer warp streams K and V through
-two-slot rings in shared memory with TMA and ``mbarrier``s.  The tiles
-are the kernel's own (``tiles``): 64 query rows, so a 64-token prompt
-wastes no rows, and 64 keys, so the fragments stay in registers.  fp32
-(the tests and the small fp32 reference, not the serving path) keeps the
-first port's CUDA-core kernel (64 x 64 tiles, fp32 FMAs): TF32 would miss
-the fp32 tolerance.  One launch counter counts both.
+bf16 runs on the tensor cores: one warpgroup computes S = Q K^T with
+``wgmma`` on a 64-row q tile, keeps the online softmax in fp32 registers,
+and adds P V as two ``wgmma``s from registers, on P_hi = bf16(P) and
+P_lo = bf16(P - P_hi), so the output stays within one bf16 rounding of the
+fp32 computation; the next tile's softmax runs while P V is on the tensor
+cores.  A producer warp streams K and V through two-slot rings in shared
+memory with TMA and ``mbarrier``s.  The tiles are the kernel's own
+(``tiles``): 64 query rows, so a 64-token prompt wastes no rows, and 64
+keys, so the fragments stay in registers.
+
+fp32 is ``launch.serve``'s default dtype (and the sharded prefills'), so
+it runs on the tensor cores too, in three TF32
+passes (``mma.sync`` m16n8k8): hi·hi + hi·lo + lo·hi with hi = tf32(x) and
+lo = tf32(x − hi), which keeps about 22 significant bits where one TF32
+product keeps 11 and misses the fp32 gate (2e-5).  8 warps a block in two
+groups, each on half of every K/V tile, merged at the end; K and V
+double-buffered with ``cp.async`` and split once as they land.
+``flash_attention_mirror_fp32`` repeats its arithmetic in plain PyTorch
+for the tests.  One launch counter counts both dtypes.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tf32
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -64,6 +72,37 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0):
     logits = torch.where(mask[None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_mirror_fp32(q, k, v, *, causal=True, window=0):
+    """The fp32 CUDA kernel's arithmetic in plain PyTorch, for the tests.
+
+    q is pre-scaled by d**-0.5; S = Q Kᵀ and O = P V are each three TF32
+    products (``tf32.product3``); P = exp(S − row max), masked entries 0,
+    and O is divided by P's row sum at the end.  The kernel's online
+    softmax over tiles and its two key groups differ from this one pass
+    only by fp32 rounding.  fp32 in, fp32 out.
+    """
+    if q.dtype != torch.float32 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention_mirror_fp32 repeats the fp32 kernel: "
+                         "q, k, v must be float32")
+    _, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if h // hkv > 1:
+        k = torch.repeat_interleave(k, h // hkv, dim=2)
+        v = torch.repeat_interleave(v, h // hkv, dim=2)
+    s = tf32.product3("bqhd,bshd->bhqs", q * d ** -0.5, k)
+    iq = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    ik = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ik <= iq
+    if window:
+        mask &= (iq - ik) < window
+    s = torch.where(mask[None, None], s, -torch.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = tf32.product3("bhqs,bshd->bqhd", p, v)
+    return o / p.sum(dim=-1).transpose(1, 2)[..., None]
 
 
 def _lib() -> ctypes.CDLL:

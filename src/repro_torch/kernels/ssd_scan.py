@@ -11,23 +11,27 @@ transpose, and masks the ragged last chunk by the real length where the
 reference pads with dt = 0; the pads are inert there, so the final states
 agree.
 
-bf16, the served path, runs on the tensor cores with the chunks in
-parallel: y blocks (a 64-row tile of a chunk for one head, C·Bᵀ formed in
-registers) and state blocks (each chunk's local state ΔS for 64 columns of
-N) in one launch; with more than one chunk a state pass then forms each
-chunk's incoming state and a second launch of y blocks adds its term.
+Both dtypes run on the tensor cores with the chunks in parallel: y blocks
+(a 64-row tile of a chunk for one head, C·Bᵀ formed in registers) and
+state blocks (each chunk's local state ΔS for 64 columns of N) in one
+launch; with more than one chunk a state pass then forms each chunk's
+incoming state and a second launch of y blocks adds its term.
 ``schedule`` gives the grids and ``block_work`` what each block computes,
 as the C code decodes it (the card tests hold the two against the C
-library's own ``ssd_scan_grids``/``ssd_scan_block``); ``ssd_scan_mirror``
-repeats the kernel's pass order and its bf16 high/low splits in plain
-PyTorch, for the tests.  fp32 keeps the first, simple kernel: one block
-per (batch, head) walking the chunks in order on the CUDA cores.  Both
-count one launch per call.
+library's own ``ssd_scan_grids``/``ssd_scan_block``).  bf16 feeds its three
+fp32 intermediates (S, the incoming state, dx) to the tensor cores as bf16
+high and low parts; fp32, ``launch.serve``'s default dtype, splits every
+operand into TF32 high and low parts and adds three products (hi·hi +
+hi·lo + lo·hi), about 22 significant bits where one TF32 product keeps 11.
+``ssd_scan_mirror`` repeats either dtype's pass order and splits in plain
+PyTorch, for the tests.  Both count one launch per call.
 
 What bounds it on an H100: at mamba2-780m's widths (H 48, P 64, N 128) the
-Engine's prefill (B 4, S 64) moves about 9.7 MB, 6.3 MB of it the fp32 final
-state (2.9 us at 3.35 TB/s), and does about 0.46 GFLOP (0.5 us at the bf16
-tensor-core peak), so the card's least time is the bytes.
+Engine's prefill (B 4, S 64) moves about 9.7 MB in bf16, 6.3 MB of it the
+fp32 state (2.9 us at 3.35 TB/s), and does about 0.46 GFLOP (0.5 us at the
+bf16 tensor-core peak), so the card's least time is the bytes; in fp32 a
+600-token prompt and a (4, 512) prefill are bound by the operations at
+three TF32 passes (495 / 3 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tf32
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)    # P, a template parameter of the kernel
 SUPPORTED_STATE_DIMS = (16, 32, 64, 128)   # N
@@ -106,20 +110,35 @@ def _split(t):
     return hi, (t - hi).to(torch.bfloat16).float()
 
 
+def _product(eq, a, b, dtype):
+    """``einsum(eq, a, b)`` as the kernel of ``dtype`` forms it: in bf16,
+    ``a`` (an fp32 intermediate, or an exact bf16 operand, whose low part is
+    then 0) split high + low against the exact bf16 ``b``, two products; in
+    fp32, both split into TF32 parts, three products (``tf32.product3``)."""
+    if dtype == torch.float32:
+        return tf32.product3(eq, a, b)
+    hi, lo = _split(a)
+    return torch.einsum(eq, hi, b) + torch.einsum(eq, lo, b)
+
+
 def ssd_scan_mirror(x, a_log, b, c, dt, *, chunk):
-    """The bf16 CUDA kernel's arithmetic in plain PyTorch, for the tests.
+    """The CUDA kernel's arithmetic in plain PyTorch, for the tests.
 
     Its pass order: each chunk's local state ΔS = dxᵀ·B from zero, with
-    dx = x·dt·exp(total − cum) split high + low; the state pass
+    dx = x·dt·exp(total − cum); the state pass
     state_in(c+1) = state_in(c)·exp(total_c) + ΔS_c; then y per chunk,
-    exp(cum_i)·(c_i · state_in) with state_in split high + low, plus S·X
-    with S = (C·Bᵀ) ∘ exp(cum_i − cum_j) ∘ dt_j (j ≤ i) split high + low.
-    C, B and X are bf16, exact as operands; products accumulate in fp32.
+    exp(cum_i)·(c_i · state_in), plus S·X with
+    S = (C·Bᵀ) ∘ exp(cum_i − cum_j) ∘ dt_j (j ≤ i).  Each product as
+    ``_product`` forms it: bf16 splits the three fp32 intermediates (dx,
+    state_in, S) high + low against the exact bf16 C, B and X; fp32 splits
+    every operand into TF32 parts.  Products accumulate in fp32.
     ``chunk`` is used as given (the wrapper clamps it first); the ragged
-    last chunk is cut, not padded.  Returns (y bf16, state fp32).
+    last chunk is cut, not padded.  Returns (y in x's dtype, state fp32).
     """
-    if x.dtype != torch.bfloat16 or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise ValueError("ssd_scan_mirror repeats the bf16 kernel: x, b, c must be bfloat16")
+    if x.dtype not in _DTYPE_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError("ssd_scan_mirror repeats the kernel: x, b, c must be all "
+                         "bfloat16 or all float32")
+    dtype = x.dtype
     bsz, s, h, p = x.shape
     xf, bf, cf = x.float(), b.float(), c.float()
     spans = [slice(c0, min(s, c0 + chunk)) for c0 in range(0, s, chunk)]
@@ -128,9 +147,7 @@ def ssd_scan_mirror(x, a_log, b, c, dt, *, chunk):
     for sl, cum in zip(spans, cums):                  # the state blocks
         total = cum[:, -1]                                                   # (B, H)
         w = dt[:, sl].float() * torch.exp(total[:, None] - cum)
-        hi, lo = _split(xf[:, sl] * w[..., None])
-        ds.append(torch.einsum("blhp,bln->bhpn", hi, bf[:, sl])
-                  + torch.einsum("blhp,bln->bhpn", lo, bf[:, sl]))
+        ds.append(_product("blhp,bln->bhpn", xf[:, sl] * w[..., None], bf[:, sl], dtype))
         totals.append(total)
     state = torch.zeros_like(ds[0])
     state_in = []
@@ -143,24 +160,21 @@ def ssd_scan_mirror(x, a_log, b, c, dt, *, chunk):
         n_rows = cq.shape[1]
         y = torch.zeros((bsz, n_rows, h, p), dtype=torch.float32, device=x.device)
         if ci:
-            hi, lo = _split(state_in[ci])
-            y = (torch.einsum("bin,bhpn->bihp", cq, hi)
-                 + torch.einsum("bin,bhpn->bihp", cq, lo)) * torch.exp(cum)[..., None]
+            y = (_product("bhpn,bin->bihp", state_in[ci], cq, dtype)
+                 * torch.exp(cum)[..., None])
         mask = torch.tril(torch.ones((n_rows, n_rows), dtype=torch.bool, device=x.device))
         mask = mask[None, :, :, None]
         diff = torch.where(mask, cum[:, :, None, :] - cum[:, None, :, :], 0.0)
-        sm = torch.einsum("bin,bjn->bij", cq, bq)[..., None] * torch.exp(diff)
+        sm = _product("bin,bjn->bij", cq, bq, dtype)[..., None] * torch.exp(diff)
         sm = torch.where(mask, sm * dt[:, sl].float()[:, None, :, :], 0.0)
-        hi, lo = _split(sm)
-        ys.append(y + torch.einsum("bijh,bjhp->bihp", hi, xq)
-                  + torch.einsum("bijh,bjhp->bihp", lo, xq))
+        ys.append(y + _product("bijh,bjhp->bihp", sm, xq, dtype))
     return torch.cat(ys, dim=1).to(x.dtype), state
 
 
 def schedule(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
-    """The bf16 kernel's grid for one call (chunk as clamped): chunks, 64-row
-    tiles per chunk, state blocks per (chunk, head), and each launch's
-    blocks, as ``csrc/ssd_scan.cu::bf16_grids`` counts them (the chunk
+    """The kernel's grid for one call of either dtype (chunk as clamped):
+    chunks, 64-row tiles per chunk, state blocks per (chunk, head), and each
+    launch's blocks, as ``csrc/ssd_scan.cu::grids`` counts them (the chunk
     kernel; with more than one chunk also the state pass and the chunk
     kernel's y blocks for the chunks after the first)."""
     nc, n_it, parts = -(-s // chunk), -(-chunk // TILE), -(-n // STATE_COLS)
@@ -220,7 +234,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_grids(bsz: int, s: int, h: int, p: int, n: int, chunk: int) -> list:
-    """Each launch's blocks of a bf16 call, as the C library counts them."""
+    """Each launch's blocks of a call, as the C library counts them."""
     out = (ctypes.c_longlong * 3)()
     count = _lib().ssd_scan_grids(bsz, s, h, p, n, chunk, out)
     if not count:
@@ -248,8 +262,7 @@ def fill_shared_memory(value: float, device: int) -> None:
 
 
 def smem_bytes(p: int, n: int, chunk: int, dtype=torch.bfloat16) -> int:
-    """Dynamic shared memory one block of the CUDA kernel needs: the
-    tensor-core kernel's for bf16, the fp32 kernel's for fp32."""
+    """Dynamic shared memory one block of the CUDA kernel needs in ``dtype``."""
     return _lib().ssd_scan_smem_bytes(_DTYPE_CODES[dtype], p, n, chunk)
 
 
@@ -295,8 +308,8 @@ def _check(x, a_log, b, c, dt, chunk):
         raise ValueError("ssd_scan wants contiguous inputs")
     if len({t.get_device() for t in ts}) != 1:
         raise ValueError("ssd_scan's inputs lie on different devices")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() | b.data_ptr() | c.data_ptr()) % 16:
-        raise ValueError("ssd_scan wants bf16 x, b, c on 16-byte boundaries (cp.async)")
+    if (x.data_ptr() | b.data_ptr() | c.data_ptr()) % 16:
+        raise ValueError("ssd_scan wants x, b, c on 16-byte boundaries (cp.async)")
 
 
 def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
@@ -304,9 +317,8 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
 
     The chunk is clamped to ``min(chunk, max(8, next_pow2(S)))`` as
     ``ops.ssd_scan`` does.  A CPU tensor goes through ``ssd_scan_plain``.  A
-    CUDA tensor launches the CUDA kernels (bf16: the tensor-core kernel,
-    one launch, or three with more than one chunk; fp32: the CUDA-core
-    kernel) or raises; either way ``ssd_scan.launches`` counts one.
+    CUDA tensor launches the CUDA kernels (one launch, or three with more
+    than one chunk) or raises; either way ``ssd_scan.launches`` counts one.
     """
     chunk = clamp_chunk(chunk, x.shape[1])
     if x.device.type == "cpu":
@@ -318,7 +330,7 @@ def ssd_scan(x, a_log, b, c, dt, *, chunk=256):
     n = b.shape[2]
     dev = x.device.index
     work = None
-    if x.dtype == torch.bfloat16 and s > chunk:
+    if s > chunk:
         work = a_log.new_empty(bsz * -(-s // chunk) * h * (2 * p * n + 1))
     _check_fits(dev, x.dtype, p, n, chunk)
     y = torch.empty_like(x)

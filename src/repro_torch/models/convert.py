@@ -18,7 +18,8 @@ A training state carries trees shaped like the parameters (AdamW's ``m``
 and ``v``, the error feedback ``ef``) or with a dict of slots at each
 parameter's place (Adafactor's ``{"vr", "vc"}`` or ``{"v"}``);
 ``params_from_jax`` maps any of them, and ``train_state_from_jax`` a whole
-state as the reference's ``CheckpointManager`` writes it.
+state as the reference's ``CheckpointManager`` writes it (where Adafactor
+factors a scanned stack of vectors, its shared column moment too).
 """
 from __future__ import annotations
 
@@ -131,16 +132,51 @@ def _slots(flat: Dict[str, torch.Tensor], names) -> Dict[str, Dict[str, torch.Te
     return out
 
 
+def _copy_dicts(tree):
+    return {k: _copy_dicts(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def _shared_column_moments(np_state, cfg):
+    """Adafactor's slots with the column moments of scanned stacks of
+    vectors taken out: (the reference's slot tree without them, {port slot
+    key: vc}).  The reference factors a (G, d) stack of vectors with vr
+    (G,) and one vc (d,) for the whole stack, which must not be indexed
+    per group like every other scanned leaf; the port keeps it whole in
+    the slots of the stack's first layer (``train.optimizer.adafactor``)."""
+    slots = _copy_dicts(np_state["opt"]["slots"])
+    shared = {}
+    for idx, (section, group, li, _) in enumerate(layer_layout(cfg)):
+        if group != 0:
+            continue
+        layer_params = dict(flatten(_layer_node(np_state["params"], section, None, li)))
+        node = slots
+        for part in ([section] if section in slots else section.split("/")):
+            node = node[part]
+        node = node[f"l{li}"]                       # in the copy, not through _take
+        for name, leaf in list(flatten(node)):
+            path, slot = name.rsplit(".", 1)
+            if slot == "vc" and np.ndim(layer_params[path]) == 2:      # a stacked vector
+                shared[f"stack.layers.{idx}.{name}"] = to_tensor(leaf)
+                parent = node
+                for part in path.split("."):
+                    parent = parent[part]
+                del parent["vc"]
+    return slots, shared
+
+
 def train_state_from_jax(np_state, cfg) -> Dict[str, object]:
     """The reference's train state (``{"params", "opt", "step", ["ef"]}``,
     nested dicts of numpy arrays, e.g. ``unflatten`` of a checkpoint's
     leaves) -> the port's: ``params`` and ``ef`` keyed by parameter name,
     AdamW's ``opt`` as ``{"m": {name: t}, "v": {name: t}}`` and
-    Adafactor's as ``{"slots": {name: {"vr", "vc"} | {"v"}}}``."""
+    Adafactor's as ``{"slots": {name: {"vr", "vc"} | {"vr"} | {"v"}}}``
+    (a factored stack of vectors: a 0-d ``vr`` for each layer, its ``vc``
+    with the first layer's)."""
     params = params_from_jax(np_state["params"], cfg)
     opt = np_state["opt"]
     if "slots" in opt:
-        port_opt = {"slots": _slots(params_from_jax(opt["slots"], cfg), params)}
+        slots, shared = _shared_column_moments(np_state, cfg)
+        port_opt = {"slots": _slots({**params_from_jax(slots, cfg), **shared}, params)}
     else:
         port_opt = {k: params_from_jax(v, cfg) for k, v in opt.items()}
     out = {"params": params, "opt": port_opt, "step": to_tensor(np_state["step"])}

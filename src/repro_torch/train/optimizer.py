@@ -24,11 +24,16 @@ written, and the global norm's per-leaf sums are reduced over the ranks.
 
 ``leaves`` says which parameters the reference holds as one leaf: its
 ``scan`` section stacks each weight of the repeating layer group along a
-new leading axis.  That matters twice, and the port follows the reference
-in both (``Model.reference_leaves`` gives the grouping): a stacked vector
-(a norm scale) is a matrix to the reference, so AdamW decays it; and
-Adafactor's update clipping takes the RMS over the whole stack.  Without
-``leaves`` every parameter is its own leaf.
+new leading axis.  That matters three times, and the port follows the
+reference in each (``Model.reference_leaves`` gives the grouping): a
+stacked vector (a norm scale) is a matrix to the reference, so AdamW
+decays it; Adafactor's update clipping takes the RMS over the whole stack;
+and a stack of 128 or more vectors of 128 or more entries is a matrix
+Adafactor factors: each layer keeps its own ``vr`` (a 0-d slot, the
+reference's row of the stack) and the stack shares one ``vc`` (the
+reference's column moment), held in the slots of the stack's first
+parameter.  ``init`` takes ``leaves`` for that.  Without ``leaves`` every
+parameter is its own leaf.
 """
 from __future__ import annotations
 
@@ -62,6 +67,16 @@ def _full(t):
     return t.full_tensor() if is_distributed(t) else t
 
 
+def _like(t, like):
+    """A whole tensor ``t`` in the placements of ``like`` where that is a
+    DTensor (every rank holds all of ``t``), else ``t``."""
+    if not is_distributed(like):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+
+
 def _placed(t, like):
     """``t`` in the placements of ``like`` (both DTensors), else as it is."""
     if is_distributed(like) and tuple(t.placements) != tuple(like.placements):
@@ -87,9 +102,10 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Tree], Any]
-    update: Callable[[Tree, Any, Tree, Any], Tuple[Tree, Any]]
-    # update(grads, state, params, step) -> (params, state), both updated in place
+    init: Callable[..., Any]
+    # init(params, leaves=None) -> state
+    update: Callable[..., Tuple[Tree, Any]]
+    # update(grads, state, params, step, leaves=None) -> (params, state), both updated in place
 
 
 def _zeros32(p):
@@ -124,7 +140,7 @@ def _ndim(p, stacked):
 
 def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
-    def init(params):
+    def init(params, leaves=None):
         return {"m": {k: _zeros32(p) for k, p in params.items()},
                 "v": {k: _zeros32(p) for k, p in params.items()}}
 
@@ -158,12 +174,24 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
     def _factored(p):
         return p.dim() >= 2 and p.shape[-1] >= min_dim_factored and p.shape[-2] >= min_dim_factored
 
-    def init(params):
-        def one(p):
-            if _factored(p):
-                return {"vr": _zeros32_without(p, -1), "vc": _zeros32_without(p, -2)}
-            return {"v": _zeros32(p)}
-        return {"slots": {k: one(p) for k, p in params.items()}}
+    def _stack_factored(names, stacked, params):
+        """A reference leaf of stacked vectors that it factors as an (L, d) matrix."""
+        first = params[names[0]]
+        return (stacked and first.dim() == 1 and len(names) >= min_dim_factored
+                and first.shape[0] >= min_dim_factored)
+
+    def init(params, leaves=None):
+        slots = {}
+        for names, stacked in _leaves(params, leaves):
+            if _stack_factored(names, stacked, params):
+                slots.update((k, {"vr": _zeros32_without(params[k], -1)}) for k in names)
+                slots[names[0]]["vc"] = _zeros32(params[names[0]])
+                continue
+            for k in names:
+                p = params[k]
+                slots[k] = ({"vr": _zeros32_without(p, -1), "vc": _zeros32_without(p, -2)}
+                            if _factored(p) else {"v": _zeros32(p)})
+        return {"slots": slots}
 
     def _one(g, slot, factored, decay):
         """The unclipped update of one parameter; its new slots written."""
@@ -182,20 +210,34 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
             slot["v"].copy_(_placed(v, slot["v"]))
         return u
 
+    def _one_stack(gs, slots, decay):
+        """``_one`` of a factored stack of vectors, the reference's (L, d)
+        leaf: a row moment per layer, the column moment shared (held in the
+        first layer's slots); the unclipped update of each layer."""
+        g = torch.stack([_full(x) for x in gs])                          # (L, d)
+        g2 = g * g + eps
+        vr = decay * torch.stack([_full(s["vr"]) for s in slots]) + (1 - decay) * g2.mean(-1)
+        vc = decay * _full(slots[0]["vc"]) + (1 - decay) * g2.mean(-2)
+        denom = torch.clamp(vr.mean(), min=eps)
+        u = g * torch.rsqrt(vr[:, None] / denom)
+        u = u * torch.rsqrt(vc[None, :])
+        for i, slot in enumerate(slots):
+            slot["vr"].copy_(_like(vr[i], slot["vr"]))
+        slots[0]["vc"].copy_(_like(vc, slots[0]["vc"]))
+        return [_like(x, gx) for x, gx in zip(u, gs)]
+
     @torch.no_grad()
     def update(grads, state, params, step, leaves=None):
         stepf = torch.as_tensor(step).to(torch.float32).cpu() + 1.0
         decay = 1.0 - stepf ** -0.8
         lr_t = lr(step)
         for names, stacked in _leaves(params, leaves):
-            first = params[names[0]]
-            if stacked and first.dim() == 1 and _factored(torch.empty((len(names),) + first.shape,
-                                                                      device="meta")):
-                raise NotImplementedError(
-                    "a stack of >= 128 vectors of >= 128 entries, which the reference "
-                    "factors across its layers")
-            us = [_one(_placed(grads[k].to(torch.float32), params[k]), state["slots"][k],
-                       _factored(params[k]), decay) for k in names]
+            gs = [_placed(grads[k].to(torch.float32), params[k]) for k in names]
+            if _stack_factored(names, stacked, params):
+                us = _one_stack(gs, [state["slots"][k] for k in names], decay)
+            else:
+                us = [_one(g, state["slots"][k], _factored(params[k]), decay)
+                      for g, k in zip(gs, names)]
             # the update clipping's RMS is over the reference's whole leaf
             rms = torch.sqrt(sum(torch.sum(u * u) for u in us) / sum(u.numel() for u in us))
             for k, u in zip(names, us):

@@ -124,7 +124,7 @@ def init_train_state(model, optimizer: Optimizer,
     gradients switched on for them."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    state = {"params": params, "opt": optimizer.init(params),
+    state = {"params": params, "opt": optimizer.init(params, model.reference_leaves()),
              "step": torch.zeros((), dtype=torch.int32)}
     if cfg.grad_compress:
         from repro_torch.parallel.compress import ef_init

@@ -10,14 +10,16 @@ Tolerances are those of ``tests/test_kernels.py``: fp32 2e-5, bf16 2e-2;
 a bf16 output is also held against the plain version in fp32 at one bf16
 rounding (atol 1e-4, rtol 2**-8).  K3's bf16 path (tensor cores, TMA) is
 also run across its tile and ring edges and twice on the same inputs,
-which must agree bitwise.  K4 (the SSD scan): fp32 at 1e-4
-(``tests/test_kernels.py``'s ``ssd`` tolerance); a bf16 y at 2e-2 and its
-fp32 final state at 1e-4 (the tensor-core kernel feeds its fp32
-intermediates to the tensor cores as bf16 high and low parts), the bf16
-path also against the plain version in fp32 at one bf16 rounding, across
-chunks, odd chunks and head counts and every P and N, with every SM's
-shared memory filled with NaN or inf before a launch, each call counted
-once; the Python grid and block decode equal the C library's.  K5 (top-k
+which must agree bitwise; its fp32 path (three TF32 passes) the same way,
+at 2e-5 against the plain version and against its mirror.  K4 (the SSD
+scan): fp32 at 1e-4 (``tests/test_kernels.py``'s ``ssd`` tolerance); a
+bf16 y at 2e-2 and its fp32 final state at 1e-4 (the bf16 path feeds its
+fp32 intermediates to the tensor cores as bf16 high and low parts, the
+fp32 path every operand as TF32 high and low parts), the bf16 path also
+against the plain version in fp32 at one bf16 rounding, both against their
+mirror, across chunks, odd chunks and head counts and every P and N, with
+every SM's shared memory filled with NaN or inf before a launch, each call
+counted once; the Python grid and block decode equal the C library's.  K5 (top-k
 gating): ids equal, ties included, and probabilities within 1e-6; under
 autograd, its plain-PyTorch backward within 1e-6 of autograd through the
 plain version.  K4
@@ -93,19 +95,32 @@ def test_kernel_matches_plain(cuda, s, h, hkv, d, window, dtype):
     (2, 300, 4, 2, 32, 40, True),        # 128-key tiles, 64-byte swizzle
     (2, 300, 4, 4, 64, 0, True),         # one 128-byte column chunk
 ])
-def test_bf16_tensor_core_kernel_across_tile_edges(cuda, b, s, h, hkv, d, window, causal):
-    q, k, v = _qkv(cuda, b, s, h, hkv, d, torch.bfloat16, seed=s + d)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_bf16_tensor_core_kernel_across_tile_edges(cuda, b, s, h, hkv, d, window, causal,
+                                                   dtype):
+    """Both tensor-core paths across their tiles (fp32: 64-row q tiles,
+    32-key K/V tiles at d >= 64 and 64-key tiles below, in a two-stage
+    ring, each tile's keys split between two warp groups): bf16 against the
+    plain version in bf16 and in fp32; fp32 at 2e-5 against the plain
+    version and against its mirror (three TF32 passes in plain PyTorch)."""
+    q, k, v = _qkv(cuda, b, s, h, hkv, d, dtype, seed=s + d)
     got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        mirror = fa.flash_attention_mirror_fp32(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, mirror, atol=2e-5, rtol=2e-5)
+        return
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
     want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                       causal=causal, window=window)
     torch.testing.assert_close(got, want32, atol=1e-4, rtol=2 ** -8)
 
 
-def test_bf16_kernel_repeats_bitwise(cuda):
-    q, k, v = _qkv(cuda, 2, 300, 8, 2, 128, torch.bfloat16, seed=5)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_bf16_kernel_repeats_bitwise(cuda, dtype):
+    q, k, v = _qkv(cuda, 2, 300, 8, 2, 128, dtype, seed=5)
     first = fa.flash_attention(q, k, v, window=100)
     again = fa.flash_attention(q, k, v, window=100)
     torch.cuda.synchronize()
@@ -427,10 +442,11 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
 
 
 def _check_ssd_bf16(args, chunk, fill=None):
-    """K4's bf16 path against the plain version in bf16 (2e-2) and in fp32
-    (one bf16 rounding), the state at 1e-4; two launches bitwise equal, one
-    count a call.  ``fill``: a value written over every SM's shared memory
-    before each launch, which the kernel must not read."""
+    """K4's tensor-core path against the plain version and its mirror; two
+    launches bitwise equal, one count a call.  bf16: y at 2e-2 and in fp32
+    at one bf16 rounding, the state at 1e-4; fp32: y and the state at
+    1e-4.  ``fill``: a value written over every SM's shared memory before
+    each launch, which the kernel must not read."""
     from repro_torch.kernels import ssd_scan as k4
 
     q = k4.clamp_chunk(chunk, args[0].shape[1])
@@ -445,10 +461,14 @@ def _check_ssd_bf16(args, chunk, fill=None):
     (y, state), (y2, state2) = outs
     assert torch.equal(y, y2) and torch.equal(state, state2)
     want_y, want_state = k4.ssd_scan_plain(*args, chunk=q)
-    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
-    want32, _ = k4.ssd_scan_plain(*(t.float() for t in args), chunk=q)
-    torch.testing.assert_close(y.float(), want32, atol=1e-4, rtol=2 ** -8)
+    mirror_y, mirror_state = k4.ssd_scan_mirror(*args, chunk=q)
+    tol = 2e-2 if y.dtype == torch.bfloat16 else 1e-4
+    for wy, ws in ((want_y, want_state), (mirror_y, mirror_state)):
+        torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(state, ws, atol=1e-4, rtol=1e-4)
+    if y.dtype == torch.bfloat16:
+        want32, _ = k4.ssd_scan_plain(*(t.float() for t in args), chunk=q)
+        torch.testing.assert_close(y.float(), want32, atol=1e-4, rtol=2 ** -8)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
@@ -458,10 +478,11 @@ def _check_ssd_bf16(args, chunk, fill=None):
 ] + [(1, 150, 3, p, n, 64) for p in (16, 32, 64, 128) for n in (16, 32, 64, 128)],
     ids=["s600_b2", "h5", "chunk8"]
         + [f"p{p}_n{n}" for p in (16, 32, 64, 128) for n in (16, 32, 64, 128)])
-def test_ssd_tensor_core_path(cuda, b, s, h, p, n, chunk):
-    """The bf16 kernel against the plain version in bf16 and fp32; bitwise
-    repeat; one count a call."""
-    _check_ssd_bf16(_ssd(cuda, b, s, h, p, n, torch.bfloat16, seed=s + h + p + n), chunk)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_ssd_tensor_core_path(cuda, b, s, h, p, n, chunk, dtype):
+    """The tensor-core kernel against the plain version (bf16 also in fp32)
+    and its mirror; bitwise repeat; one count a call."""
+    _check_ssd_bf16(_ssd(cuda, b, s, h, p, n, dtype, seed=s + h + p + n), chunk)
 
 
 @pytest.mark.parametrize("b,s,h,chunk", [
@@ -471,11 +492,12 @@ def test_ssd_tensor_core_path(cuda, b, s, h, p, n, chunk):
     (1, 100, 4, 8),      # chunk 8: 16-row steps reach past the chunk
     (4, 600, 48, 75),    # an odd chunk: 8 chunks of 75 rows, two row tiles each
 ], ids=["s17", "s33", "s600", "chunk8", "chunk75"])
-def test_ssd_reads_no_stale_shared_memory(cuda, b, s, h, chunk):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_ssd_reads_no_stale_shared_memory(cuda, b, s, h, chunk, dtype):
     """Every SM's shared memory is filled with NaN (then with inf) before
     each launch: the kernel reads only shared memory it wrote, so y and the
     state stay finite and pass the same gates."""
-    args = _ssd(cuda, b, s, h, 64, 128, torch.bfloat16, seed=s + chunk)
+    args = _ssd(cuda, b, s, h, 64, 128, dtype, seed=s + chunk)
     for fill in (float("nan"), float("inf")):
         _check_ssd_bf16(args, chunk, fill=fill)
 

@@ -14,7 +14,10 @@ ragged last chunk, odd chunks, and odd head counts.
 ``schedule`` (the grid) is decoded by ``block_work`` as ``csrc/ssd_scan.cu``
 decodes ``blockIdx`` (the card tests hold both against the C library), and
 every (batch, chunk, row tile, head) must get exactly one y block and every
-(batch, chunk, head, state columns) one state block.
+(batch, chunk, head, state columns) one state block.  The fp32 path (three
+TF32 passes, whose arithmetic ``tests/test_torch_tf32_forms.py`` holds)
+takes the same schedule, so these cases also cover its calls, among them
+sharded_ssm's fp32 prefill at (4, 512).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -86,9 +89,13 @@ def test_mirror_matches_plain_and_pallas(name):
 
 
 def test_mirror_takes_only_bf16():
+    """The mirror repeats a kernel: bf16 (or, since the fp32 path is on the
+    tensor cores too, fp32) for all of x, b and c, and nothing else."""
     x, a_log, b, c, dt = _inputs(0, 1, 16, 2, 16, 16)
     with pytest.raises(ValueError, match="bfloat16"):
-        k4.ssd_scan_mirror(x.float(), a_log, b.float(), c.float(), dt, chunk=16)
+        k4.ssd_scan_mirror(x.float(), a_log, b, c, dt, chunk=16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k4.ssd_scan_mirror(x.half(), a_log, b.half(), c.half(), dt, chunk=16)
 
 
 def _decode(bsz, s, h, n, chunk, plan):
@@ -109,6 +116,7 @@ def _decode(bsz, s, h, n, chunk, plan):
     (1, 100, 4, 64, 128, 8),       # chunk 8: 13 chunks
     (4, 600, 8, 64, 128, 75),      # an odd chunk: 8 chunks of two row tiles
     (2, 520, 6, 128, 32, 128),
+    (4, 512, 48, 64, 128, 256),    # sharded_ssm's fp32 prefill: two full chunks
 ])
 def test_schedule_covers_every_block_once(bsz, s, h, p, n, chunk):
     q = k4.clamp_chunk(chunk, s)
@@ -128,10 +136,11 @@ def test_schedule_covers_every_block_once(bsz, s, h, p, n, chunk):
     assert all(w[0] == "y" and w[2] > 0 for launch in launches[1:] for w in launch)
 
 
-@pytest.mark.parametrize("bsz,s", [(4, 64), (1, 64), (1, 17), (1, 33), (1, 600)])
+@pytest.mark.parametrize("bsz,s", [(4, 64), (1, 64), (1, 17), (1, 33), (1, 600), (4, 512)])
 def test_schedule_fills_an_h100_on_mamba2_widths(bsz, s):
-    """Every serving-path call puts at least one block a SM in flight in its
-    first launch: 48 heads × (row tiles + 2 state blocks) a sequence."""
+    """Every serving-path call (and sharded_ssm's fp32 prefill) puts at
+    least one block a SM in flight in its first launch: 48 heads × (row
+    tiles + 2 state blocks) a sequence."""
     q = k4.clamp_chunk(256, s)
     plan = k4.schedule(bsz, s, 48, 64, 128, q)
     assert plan["grids"][0] >= H100_SMS

@@ -624,3 +624,82 @@ def test_train_state_from_jax_maps_adafactor_slots():
     names = {n for n, _ in tm.named_parameters()}
     assert set(got["params"]) == set(got["opt"]["slots"]) == names
     assert all(set(s) == {"v"} for s in got["opt"]["slots"].values())
+
+
+def test_adafactor_factors_a_deep_stack_of_vectors():
+    """130 stacked vectors of 128 entries (a norm scale of 130 scanned layer
+    groups) are one (130, 128) leaf to the reference, which Adafactor
+    factors: grouped through ``leaves``, the port keeps a ``vr`` per layer
+    and one shared ``vc``, and 5 steps match the reference's."""
+    rng = np.random.default_rng(0)
+    n, d = 130, 128
+
+    def tree(scale):
+        return {"stack": rng.standard_normal((n, d)).astype(np.float32) * scale,
+                "big": rng.standard_normal((256, 128)).astype(np.float32) * scale,
+                "vec": rng.standard_normal((48,)).astype(np.float32) * scale}
+
+    def port(t):
+        out = {f"s.{i}": torch.from_numpy(t["stack"][i].copy()) for i in range(n)}
+        out.update({k: torch.from_numpy(t[k].copy()) for k in ("big", "vec")})
+        return out
+
+    names = [f"s.{i}" for i in range(n)]
+    leaves = [(names, True), (["big"], False), (["vec"], False)]
+    jo = jopt.adafactor(jopt.cosine_schedule(1e-2, 2, 10))
+    to = optimizer.adafactor(optimizer.cosine_schedule(1e-2, 2, 10))
+    start = tree(0.1)
+    jparams, params = jax.tree.map(jnp.asarray, start), port(start)
+    jstate, state = jo.init(jparams), to.init(params, leaves)
+    assert set(state["slots"]["s.0"]) == {"vr", "vc"} and state["slots"]["s.0"]["vc"].shape == (d,)
+    assert all(set(state["slots"][k]) == {"vr"} for k in names[1:])
+    assert all(state["slots"][k]["vr"].shape == () for k in names)
+    for step in range(5):
+        grads = tree(1.0)
+        jparams, jstate = jo.update(jax.tree.map(jnp.asarray, grads), jstate, jparams, step)
+        params, state = to.update(port(grads), state, params,
+                                  torch.tensor(step, dtype=torch.int32), leaves)
+    got = torch.stack([params[k] for k in names])
+    _close(got, jparams["stack"], PARAM_TOL)
+    for k in ("big", "vec"):
+        _close(params[k], jparams[k], PARAM_TOL)
+    _close(torch.stack([state["slots"][k]["vr"] for k in names]), jstate["slots"]["stack"]["vr"],
+           PARAM_TOL)
+    _close(state["slots"]["s.0"]["vc"], jstate["slots"]["stack"]["vc"], PARAM_TOL)
+
+
+def test_factored_stack_slots_cross_from_the_reference(tmp_path):
+    """A 130-layer model whose norm scales (130 × 128) the reference's
+    Adafactor factors: its slots map through ``train_state_from_jax`` and
+    through a checkpoint the reference wrote onto the port's own state (a
+    0-d ``vr`` per layer, the whole ``vc`` with the first layer's)."""
+    name = "tinyllama-1.1b"
+    jcfg = jreduced(jget_arch(name), n_layers=130, d_model=128)
+    cfg = reduced(get_arch(name), n_layers=130, d_model=128)
+    jm = JModel(jcfg, JFlags(dtype="float32", sp=False))
+    jparams = jm.init(jax.random.key(0))
+    jo = jopt.adafactor(jopt.cosine_schedule(1e-3, 2, 20))
+    rng = np.random.default_rng(1)
+    slots = jax.tree.map(lambda a: jnp.asarray(rng.random(a.shape, dtype=np.float32)),
+                         jo.init(jparams))
+    jstate = {"params": jparams, "opt": slots, "step": jnp.asarray(3, jnp.int32)}
+    got = train_state_from_jax(_np(jstate), cfg)["opt"]["slots"]
+    scale = jstate["opt"]["slots"]["scan"]["l0"]["mixer"]["norm"]["scale"]
+    assert scale["vr"].shape == (130,) and scale["vc"].shape == (128,)
+    for g in range(130):
+        slot = got[f"stack.layers.{g}.mixer.norm.scale"]
+        assert set(slot) == ({"vr", "vc"} if g == 0 else {"vr"})
+        np.testing.assert_array_equal(slot["vr"].numpy(), np.asarray(scale["vr"])[g])
+    np.testing.assert_array_equal(got["stack.layers.0.mixer.norm.scale"]["vc"].numpy(),
+                                  np.asarray(scale["vc"]))
+
+    model = Model(cfg, BuildFlags(dtype="float32", sp=False), device="cpu", seed=0)
+    opt = optimizer.adafactor(optimizer.cosine_schedule(1e-3, 2, 20))
+    template = init_train_state(model, opt)
+    assert set(template["opt"]["slots"]["stack.layers.0.mixer.norm.scale"]) == {"vr", "vc"}
+    assert set(template["opt"]["slots"]["stack.layers.1.mixer.norm.scale"]) == {"vr"}
+    JCheckpointManager(str(tmp_path), async_save=False).save(3, jstate, block=True)
+    restored = CheckpointManager(str(tmp_path)).restore(3, template, cfg=cfg)
+    for k, slot in got.items():
+        for s, val in slot.items():
+            assert torch.equal(restored["opt"]["slots"][k][s], val), (k, s)
