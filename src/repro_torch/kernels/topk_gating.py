@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import build
 
 MAX_EXPERTS = 256
@@ -114,16 +115,17 @@ def _forward(logits, k):
         return out_buffers(logits, k)
     if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu, not {dev}")
-    _check(logits, k)
-    t, e = logits.shape
-    top_p, top_ids = out_buffers(logits, k)
-    lib = _lib()
-    err = lib.topk_gating_fwd(logits.data_ptr(), top_p.data_ptr(), top_ids.data_ptr(),
-                              t, e, k, dev.index, build.current_stream(dev.index))
-    if err:
-        msg = lib.topk_gating_error_string(err).decode()
-        raise RuntimeError(f"topk_gating launch failed: cudaError {err} ({msg})")
-    topk_gating.launches += 1
+    with trace.span("k5", logits.shape[0]):
+        _check(logits, k)
+        t, e = logits.shape
+        top_p, top_ids = out_buffers(logits, k)
+        lib = _lib()
+        err = lib.topk_gating_fwd(logits.data_ptr(), top_p.data_ptr(), top_ids.data_ptr(),
+                                  t, e, k, dev.index, build.current_stream(dev.index))
+        if err:
+            msg = lib.topk_gating_error_string(err).decode()
+            raise RuntimeError(f"topk_gating launch failed: cudaError {err} ({msg})")
+        topk_gating.launches += 1
     return top_p, top_ids
 
 

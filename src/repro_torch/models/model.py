@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
@@ -204,8 +205,9 @@ class Model(nn.Module):
         """batch {"tokens": (B, S)}, plus ``image_embeds`` (B, F, d) for a
         vision arch, or only ``frame_embeds`` (B, S, d) for an audio arch
         -> (last-position logits (B, V), caches)."""
-        with maybe_context(self.policy):
+        with trace.span("model.prefill") as span, maybe_context(self.policy):
             x = self._embed_inputs(batch)
+            span.arg = x.shape[0] * x.shape[1]
             hidden, _, caches = self.stack.forward_full(x, self.flags, want_cache=True,
                                                         policy=self.policy)
             logits = self._logits(hidden[:, -1:, :])[:, 0]
@@ -217,7 +219,7 @@ class Model(nn.Module):
         The caches are updated in place and returned.  Under a policy the
         caches are ``ShardingPolicy.cache_shardings``'s DTensors.
         """
-        with maybe_context(self.policy):
+        with trace.span("model.decode_step", tokens.shape[0]), maybe_context(self.policy):
             x = self._token_embeds(tokens)
             hidden, caches = self.stack.forward_decode(x, caches, pos, self.policy)
             return self._logits(hidden)[:, 0], caches

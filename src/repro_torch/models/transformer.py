@@ -47,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, mamba2, moe
 from repro_torch.models.layers import MLP, RMSNorm
@@ -65,10 +66,12 @@ class DenseFFN(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, spec, cfg, dtype, device, generator=None):
+    def __init__(self, spec, cfg, dtype, device, generator=None, index=0):
         super().__init__()
         self.cfg = cfg
+        self.index = index                 # the layer's place in the stack, for its spans
         self.is_attn = spec.mixer in ("attn", "attn_local")
+        self.mixer_span = "layer.attn" if self.is_attn else "layer.mamba"
         self.window = cfg.sliding_window if spec.mixer == "attn_local" else 0
         if self.is_attn:
             self.mixer = attention.Attention(cfg, dtype, device, generator)
@@ -82,31 +85,33 @@ class Layer(nn.Module):
 
     def _ffn(self, x, want_aux=False, policy=None, grouped=True):
         """(x + ffn(x), the MoE's aux loss or None)."""
-        if self.ffn_kind == "dense":
-            x = x + self.ffn(x, self.cfg.norm_eps)
-            aux = None
-        elif self.ffn_kind == "moe":
-            y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux, policy=policy,
-                                 grouped=grouped)
-            x = x + y
-        else:
+        if self.ffn_kind not in ("dense", "moe"):
             return x, None
+        with trace.span("layer.ffn", self.index):
+            if self.ffn_kind == "dense":
+                x = x + self.ffn(x, self.cfg.norm_eps)
+                aux = None
+            else:
+                y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux, policy=policy,
+                                     grouped=grouped)
+                x = x + y
         if policy is not None:
             x = policy.constrain_residual(x)
         return x, aux
 
     def full(self, x, flags, want_aux=False, policy=None, want_cache=True):
         """Full-seq layer.  Returns (x, aux | None, cache | None)."""
-        if self.is_attn:
-            h, cache = attention.full_attention(
-                self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
-                attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv,
-                policy=policy)
-        elif policy is not None and is_distributed(x):
-            h, cache = mamba2.mamba_block_sharded(policy, self.mixer, x, self.cfg,
-                                                  flags.ssd_impl, want_cache)
-        else:
-            h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
+        with trace.span(self.mixer_span, self.index):
+            if self.is_attn:
+                h, cache = attention.full_attention(
+                    self.mixer, x, self.cfg, window=self.window, impl=flags.attn_impl,
+                    attn_block_q=flags.attn_block_q, attn_block_kv=flags.attn_block_kv,
+                    policy=policy)
+            elif policy is not None and is_distributed(x):
+                h, cache = mamba2.mamba_block_sharded(policy, self.mixer, x, self.cfg,
+                                                      flags.ssd_impl, want_cache)
+            else:
+                h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
         x = x + h
         if policy is not None:
             x = policy.constrain_residual(x)
@@ -114,13 +119,14 @@ class Layer(nn.Module):
         return x, aux, cache
 
     def decode(self, x, cache, pos, policy=None):
-        if self.is_attn:
-            h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
-                                                  window=self.window)
-        elif is_distributed(x):
-            h, cache = mamba2.mamba_decode_sharded(policy, self.mixer, x, cache, self.cfg)
-        else:
-            h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
+        with trace.span(self.mixer_span, self.index):
+            if self.is_attn:
+                h, cache = attention.decode_attention(self.mixer, x, cache, pos, self.cfg,
+                                                      window=self.window)
+            elif is_distributed(x):
+                h, cache = mamba2.mamba_decode_sharded(policy, self.mixer, x, cache, self.cfg)
+            else:
+                h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
         # the reference's decode MoE takes one dispatch group (policy None there)
         return self._ffn(x + h, policy=policy, grouped=False)[0], cache
 
@@ -186,7 +192,8 @@ class Stack(nn.Module):
         super().__init__()
         self.layout = layer_layout(cfg)
         self.layers = nn.ModuleList(
-            Layer(spec, cfg, dtype, device, generator) for *_, spec in self.layout)
+            Layer(spec, cfg, dtype, device, generator, index=i)
+            for i, (*_, spec) in enumerate(self.layout))
 
     def forward_full(self, x, flags, want_cache: bool, policy=None):
         """x: (B,S,D) embedded input -> (hidden (B,S,D), aux_total, caches | None).

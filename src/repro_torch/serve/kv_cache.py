@@ -21,6 +21,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 
 @dataclasses.dataclass
 class Request:
@@ -49,28 +51,31 @@ class SlotServer:
 
     # -- prefill one request into one slot of the shared caches ---------------
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
-        logits, fresh = self.model.prefill({"tokens": req.tokens[None, :]})
         plen = len(req.tokens)
-        # The reference merges the batch-1 cache into the shared one with a
-        # right-zero-padded dynamic_update_slice; here the slot's rows are
-        # written in place, cast to the shared leaf's dtype (Mamba state and
-        # conv are fp32 there, prefill's conv is in the model's dtype).  Dim 1
-        # of a fresh leaf holds what prefill produced: attention K/V's plen
-        # rows, the Mamba state's H heads (all of them), and the conv
-        # window's min(plen, K-1) rows.  What it lacks is zeroed, as the
-        # reference's pad does, so a prompt shorter than the conv window
-        # leaves the window's tail zero there too.
-        for shared, new in zip(self.caches, fresh):
-            for name, c in shared.items():
-                rows = new[name].shape[1]
-                c[slot, :rows] = new[name][0].to(c.dtype)
-                c[slot, rows:] = 0
-        first = int(torch.argmax(logits[0]))
-        req.out.append(first)
-        self.active[slot] = req
-        self.pos[slot] = plen
-        self._next_tok[slot, 0] = first
-        self._maybe_finish(slot)
+        with trace.span("serve.admit", (req.rid, plen)):
+            logits, fresh = self.model.prefill({"tokens": req.tokens[None, :]})
+            # The reference merges the batch-1 cache into the shared one with a
+            # right-zero-padded dynamic_update_slice; here the slot's rows are
+            # written in place, cast to the shared leaf's dtype (Mamba state and
+            # conv are fp32 there, prefill's conv is in the model's dtype).  Dim 1
+            # of a fresh leaf holds what prefill produced: attention K/V's plen
+            # rows, the Mamba state's H heads (all of them), and the conv
+            # window's min(plen, K-1) rows.  What it lacks is zeroed, as the
+            # reference's pad does, so a prompt shorter than the conv window
+            # leaves the window's tail zero there too.
+            with trace.span("serve.cache_write"):
+                for shared, new in zip(self.caches, fresh):
+                    for name, c in shared.items():
+                        rows = new[name].shape[1]
+                        c[slot, :rows] = new[name][0].to(c.dtype)
+                        c[slot, rows:] = 0
+            with trace.span("serve.first_token"):
+                first = int(torch.argmax(logits[0]))
+            req.out.append(first)
+            self.active[slot] = req
+            self.pos[slot] = plen
+            self._next_tok[slot, 0] = first
+            self._maybe_finish(slot)
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.active[slot]
@@ -89,23 +94,32 @@ class SlotServer:
     @torch.inference_mode()
     def step(self) -> int:
         """Fill free slots, then one decode step for all busy slots."""
-        for s in range(self.n_slots):
-            if self.active[s] is None and self._queue:
-                self._prefill_into_slot(self._queue.pop(0), s)
-        busy = [s for s in range(self.n_slots) if self.active[s] is not None]
-        if not busy:
-            return 0
+        with trace.span("serve.step") as span:
+            for s in range(self.n_slots):
+                if self.active[s] is None and self._queue:
+                    self._prefill_into_slot(self._queue.pop(0), s)
+            busy = [s for s in range(self.n_slots) if self.active[s] is not None]
+            span.arg = len(busy)
+            if busy:
+                self._decode(busy)
+            if trace.enabled():
+                trace.count("serve.kv_used", sum(int(self.pos[s]) for s in range(self.n_slots)
+                                                 if self.active[s] is not None))
+                trace.count("serve.kv_reserved", self.n_slots * self.max_len)
+        return len(busy)
+
+    def _decode(self, busy: List[int]) -> None:
         dev = self.model.device
         logits, self.caches = self.model.decode_step(
             torch.as_tensor(self._next_tok, device=dev), self.caches,
             torch.as_tensor(self.pos, device=dev))
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        for s in busy:
-            self.active[s].out.append(int(nxt[s]))
-            self.pos[s] += 1
-            self._next_tok[s, 0] = int(nxt[s])
-            self._maybe_finish(s)
-        return len(busy)
+        with trace.span("serve.sample"):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            for s in busy:
+                self.active[s].out.append(int(nxt[s]))
+                self.pos[s] += 1
+                self._next_tok[s, 0] = int(nxt[s])
+                self._maybe_finish(s)
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         for _ in range(max_steps):
