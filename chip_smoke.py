@@ -8,7 +8,7 @@ failed check and then prints no result):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every kernel of every path (K3; K1a, K1b and K2 in one source;
-   K4; K5) compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source
+   K4; K5; K6) compiled from ``csrc/`` with nvcc for sm_90a, one nvcc per source
    started together, with the ``-Xptxas -v`` resource report; each K3
    instantiation's tensor-core (``HGMMA``, ``HMMA``) and TMA (``UTMALDG``)
    instructions counted in its SASS (``cuobjdump -sass``): every bf16 one
@@ -107,7 +107,17 @@ failed check and then prints no result):
    ``phase_fp32_times``: K3 in fp32 at ``FP32_K3_TIMED`` (SDPA in fp32 held
    first to K3's plain version at 2e-5) and K4 in fp32 at
    ``FP32_K4_TIMED``, their bounds at three TF32 passes (``float32_tc``,
-   495 / 3 TFLOP/s) and, beside, at the CUDA cores' 67 TFLOP/s.
+   495 / 3 TFLOP/s) and, beside, at the CUDA cores' 67 TFLOP/s;
+   ``phase_decode_times``: K6 (decode attention on the cache) at
+   deepseek-moe-16b's chat and longdoc decode shapes (``DECODE_TIMED``),
+   beside its bound (the bytes of the positions attended and the new rows),
+   the plain version and SDPA over the same cache; before that, at those
+   shapes and at the main paths' own (``phase_decode_checks``: llama2-7b's
+   and deepseek-moe-16b's heads, Engine's int position and SlotServer's
+   per-slot ones, bf16 and fp32), the caches it writes must equal the plain
+   version's bitwise and its output lie within one rounding of fp64
+   attention; on the main paths (4 and 6) K6's launches must equal the
+   attention layers times the decode calls.
 
 11. explore_main (the paper's DSE loop, ``launch.explore``): llama2-7b's
    generation workload at full width, ``--algorithm bayesopt --gp cuda``,
@@ -753,6 +763,7 @@ def phase_main_path(n_layers, seed):
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k6
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import BuildFlags, Model
 
@@ -770,18 +781,23 @@ def phase_main_path(n_layers, seed):
 
     # ---- the main path, with every kernel's launch count set to 0 just before
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = k6.decode_attention.launches = 0
     tokens, _, gen_s, slot_s, calls = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
-    launches = {"flash_attention": fa.flash_attention.launches}
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "decode_attention": k6.decode_attention.launches}
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
 
     want = n_attn * calls["prefill"]
     emit("main_path", engine_seconds=gen_s, slot_server_seconds=slot_s, calls=calls,
-         launches=launches, expected_flash_launches=want, max_memory_allocated=peak)
+         launches=launches, expected_flash_launches=want,
+         expected_decode_launches=n_attn * calls["decode"], max_memory_allocated=peak)
     if launches["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
                              f"times on the main path, expected {want}")
+    if launches["decode_attention"] != n_attn * calls["decode"]:
+        raise AssertionError(f"decode_attention launched {launches['decode_attention']} "
+                             f"times on the main path, expected {n_attn * calls['decode']}")
 
     # ---- outputs: over 32 bf16 layers both bf16 paths drift from fp32; the
     # flash path must not drift further than DRIFT_RATIO times as far
@@ -1264,6 +1280,7 @@ def phase_moe_main(seed):
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k6
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import topk_gating as k5
@@ -1285,15 +1302,17 @@ def phase_moe_main(seed):
 
     # ---- the main path, with every kernel's launch count set to 0 just before
     torch.cuda.reset_peak_memory_stats()
-    for kern in (k4.ssd_scan, k5.topk_gating, fa.flash_attention):
+    for kern in (k4.ssd_scan, k5.topk_gating, fa.flash_attention, k6.decode_attention):
         kern.launches = 0
     tokens, _, gen_s, slot_s, calls = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
     launches = {"ssd_scan": k4.ssd_scan.launches, "topk_gating": k5.topk_gating.launches,
-                "flash_attention": fa.flash_attention.launches}
+                "flash_attention": fa.flash_attention.launches,
+                "decode_attention": k6.decode_attention.launches}
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
     want = {"ssd_scan": 0, "topk_gating": n_moe * (calls["prefill"] + calls["decode"]),
-            "flash_attention": n_attn * calls["prefill"]}
+            "flash_attention": n_attn * calls["prefill"],
+            "decode_attention": n_attn * calls["decode"]}
     emit("main_moe", arch=cfg.name, engine_seconds=gen_s, slot_server_seconds=slot_s,
          calls=calls, launches=launches, expected=want, max_memory_allocated=peak)
     if launches != want:
@@ -1589,6 +1608,188 @@ def phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe):
              "ms": rows["topk"]["ms"], "plain_ms": rows["topk"]["plain_ms"],
              "bound_ms": rows["topk"]["bound_ms"], "bound_by": rows["topk"]["bound_by"],
              "library_ms": None}]
+
+
+# K6's timed decode shapes: (name, B, S_max, H, Hkv, d, dtype, positions'
+# range).  dsmoe16b's chat cell holds 32 slots of 2560 positions about a
+# third full (kv_used_share.chat 33.7 %), its longdoc cell 24 slots of 4096
+# past 2048-3968-token prompts; each row's position is drawn from the range.
+DECODE_TIMED = [
+    ("chat", 32, 2560, 16, 16, 128, "bfloat16", (64, 1724)),
+    ("longdoc", 24, 4096, 16, 16, 128, "bfloat16", (2048, 4000)),
+]
+
+
+def decode_bound(b, h, hkv, d, dtype, positions, window=0):
+    """(bound_ms, bound_by) of one K6 call: the K and V rows of the positions
+    attended before each row's own read once, its new K and V rows written,
+    q, k_new and v_new read and o written; 4 flops a (query head, key)
+    element pair, at the dtype's CUDA-core (fp32) or tensor-core peak."""
+    elt = 2 if dtype == "bfloat16" else 4
+    held = sum(p - (max(0, p - window + 1) if window else 0) for p in positions)
+    nbytes = elt * (2 * hkv * d * held + 2 * b * hkv * d + b * (2 * h + 2 * hkv) * d)
+    flops = 4 * h * d * (held + b)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["bfloat16" if dtype == "bfloat16" else "float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_case(b, s_max, h, hkv, d, dt, seed):
+    """(q, k_new, v_new, [cache_k, cache_v]) of one decode call, normal draws."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(dt)
+    k_new, v_new = (torch.randn((b, 1, hkv, d), generator=g, device="cuda").to(dt)
+                    for _ in range(2))
+    caches = [torch.randn((b, s_max, hkv, d), generator=g, device="cuda").to(dt)
+              for _ in range(2)]
+    return q, k_new, v_new, caches
+
+
+def check_decode(case, pos, theta, window=0):
+    """K6 and its plain version on copies of ``case``'s caches: the caches
+    must be bitwise equal after both, and K6's output within one rounding
+    to q's dtype of fp64 attention over them (|err| <= 1e-4 + u·|ref|, u
+    2**-8 in bf16, 2e-6 in fp32: the card tests' bound).  Returns (K6's
+    output, the plain version's, the caches K6 wrote, max |err|, the largest
+    share of the bound used)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.models.attention import decode_attention_plain
+    from repro_torch.models.layers import apply_rope
+
+    q, k_new, v_new, caches = case
+    kc, pc = [c.clone() for c in caches], [c.clone() for c in caches]
+    got = k6.decode_attention(q, k_new, v_new, *kc, pos, theta, window=window)
+    want = decode_attention_plain(q, k_new, v_new, *pc, pos, theta, window=window)
+    if not (torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])):
+        raise AssertionError(f"decode_attention wrote other caches than its plain version "
+                             f"at {tuple(caches[0].shape)}, pos {pos}")
+    del pc
+    b, _, h, d = q.shape
+    s_max, hkv = kc[0].shape[1], kc[0].shape[2]
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1).expand(b, 1).long()
+    qr = apply_rope(q, posb, theta).double()[:, 0].reshape(b, hkv, h // hkv, d)
+    idx = torch.arange(s_max, device=q.device)[None, :]
+    mask = idx <= posb
+    if window:
+        mask &= (posb - idx) < window
+    lg = torch.einsum("bkrd,bskd->bkrs", qr, kc[0].double()) * d ** -0.5
+    lg = torch.where(mask[:, None, None, :], lg, -torch.inf)
+    ref = torch.einsum("bkrs,bskd->bkrd", torch.softmax(lg, dim=-1),
+                       kc[1].double()).reshape(b, 1, h, d)
+    err = (got.double() - ref).abs()
+    bound = 1e-4 + (2 ** -8 if q.dtype == torch.bfloat16 else 2e-6) * ref.abs()
+    share = (err / bound).max().item()
+    if share > 1:
+        raise AssertionError(f"decode_attention at {tuple(caches[0].shape)}, pos {pos}: "
+                             f"|err| {err.max().item()} over its fp64 bound")
+    return got, want, kc, err.max().item(), share
+
+
+def phase_decode_checks():
+    """K6 at the main paths' own decode shapes, checked and not timed:
+    llama2-7b's and deepseek-moe-16b's heads, in bf16 (``phase_main_path``,
+    ``phase_moe_main``) and fp32 (``launch.serve``'s fp32), Engine's aligned
+    decode at every position it decodes (one int, B = ENGINE_BATCH, S_max =
+    ENGINE_PROMPT + ENGINE_NEW + 1) and SlotServer's per-slot positions (2
+    slots of 128, pairs over the cache and its edges), each by
+    ``check_decode``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    engine_len = ENGINE_PROMPT + ENGINE_NEW + 1
+    rng = np.random.default_rng(11)
+    slot_pos = [(0, 127), (127, 0), (64, 17)] + rng.integers(0, 128, (8, 2)).tolist()
+    for arch in (ARCH, MOE_ARCH):
+        cfg = get_arch(arch)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            errs, shares = [], []
+            for p in range(ENGINE_PROMPT, ENGINE_PROMPT + ENGINE_NEW - 1):
+                case = decode_case(ENGINE_BATCH, engine_len, h, hkv, d, dt, seed=p)
+                errs.append(check_decode(case, p, cfg.rope_theta)[3:])
+            for i, pair in enumerate(slot_pos):
+                case = decode_case(2, 128, h, hkv, d, dt, seed=1000 + i)
+                pos = torch.tensor(pair, dtype=torch.int32, device="cuda")
+                shares.append(check_decode(case, pos, cfg.rope_theta)[3:])
+            emit("decode_check", arch=arch, dtype=dtype, heads=[h, hkv, d],
+                 engine=dict(shape=[ENGINE_BATCH, engine_len], calls=len(errs),
+                             max_abs_err=max(e for e, _ in errs),
+                             max_bound_share=max(s for _, s in errs)),
+                 slot=dict(shape=[2, 128], calls=len(shares),
+                           max_abs_err=max(e for e, _ in shares),
+                           max_bound_share=max(s for _, s in shares)))
+
+
+def phase_decode_times(launches=None):
+    """``phase_decode_checks``, then K6 at DECODE_TIMED: held to its plain
+    version and to fp64 there by ``check_decode``, then timed as a loop, one launch, the profiler's
+    device time and inside a CUDA graph, beside its bound, the plain version
+    and SDPA over the cache it wrote (the library yardstick: attention
+    alone, given the roped q; the port never calls it), and the wrapper's
+    host time per call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.models.attention import decode_attention_plain
+    from repro_torch.models.layers import apply_rope
+
+    phase_decode_checks()
+    rows = {}
+    for name, b, s_max, h, hkv, d, dtype, (lo, hi) in DECODE_TIMED:
+        dt = getattr(torch, dtype)
+        q, k_new, v_new, caches = case = decode_case(b, s_max, h, hkv, d, dt, seed=7)
+        positions = np.random.default_rng(7).integers(lo, hi, b).tolist()
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        theta = 10000.0
+        _, want, caches, err, share = check_decode(case, pos, theta)
+        del case
+        posb = pos.long()[:, None]
+        q_rot = apply_rope(q, posb, theta).transpose(1, 2)
+        k_view, v_view = (c.transpose(1, 2) for c in caches)
+        mask = (torch.arange(s_max, device="cuda")[None, :] <= posb)[:, None, None, :]
+
+        def kernel():
+            return k6.decode_attention(q, k_new, v_new, *caches, pos, theta)
+
+        def plain():
+            return decode_attention_plain(q, k_new, v_new, *caches, pos, theta)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q_rot, k_view, v_view, attn_mask=mask,
+                                                  enable_gqa=h != hkv)
+        lib_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
+        if lib_err > 2e-2:
+            raise AssertionError(f"SDPA at {name} is {lib_err} off the plain version")
+        bound_ms, bound_by = decode_bound(b, h, hkv, d, dtype, positions)
+        splits, split_len = k6.schedule(s_max, b * hkv)
+        rows[name] = dict(ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
+                          library_ms=cuda_ms(sdpa, 50), bound_ms=bound_ms, bound_by=bound_by,
+                          kernel_single_ms=single_ms(kernel), kernel_graph_ms=graph_ms(kernel),
+                          host_enqueue_us=enqueue_us(kernel), max_abs_err=err,
+                          max_bound_share=share, library_max_abs_err=lib_err,
+                          **device_times(kernel=kernel, plain=plain, sdpa=sdpa))
+        # the graph's time: late in a long process the profiler drops the
+        # port's launches (PERF.md section 7) and reads 0
+        rows[name]["bound_share_of_graph"] = bound_ms / rows[name]["kernel_graph_ms"]
+        emit("time", kernel="decode_attention", case=name, shape=[b, s_max, h, hkv, d],
+             dtype=dtype, positions_mean=float(np.mean(positions)), grid=[splits, hkv, b],
+             split_len=split_len, smem_bytes=k6.smem_bytes(dt, d, h // hkv), **rows[name])
+    chat = rows["chat"]
+    return [{"name": "decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "replaces": "none (the reference's decode attention is plain jnp)",
+             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+             "ms": chat["ms"], "plain_ms": chat["plain_ms"], "bound_ms": chat["bound_ms"],
+             "bound_by": chat["bound_by"], "library_ms": chat["library_ms"]}]
 
 
 # fp32 K3 calls that the main paths make: launch.serve's defaults
@@ -3945,6 +4146,7 @@ def run_only(names, infos):
         "train_sharded": lambda: phase_train_sharded(SEED, tempfile.mkdtemp(prefix="shard")),
         "sharded_ssm": lambda: phase_sharded_ssm(SEED),
         "fp32_times": phase_fp32_times,
+        "decode_times": phase_decode_times,
         "serve_fp32": lambda: phase_serve_fp32(SEED),
         "examples": lambda: phase_examples(tempfile.mkdtemp(prefix="examples")),
     }
@@ -3974,8 +4176,8 @@ def main(only=None):
 
     t0 = time.perf_counter()
     probe_build = start_probe_build()
-    infos = build.build_all(["flash_attention", "gp_ops", "ssd_scan", "topk_gating"],
-                            force=True)
+    infos = build.build_all(["flash_attention", "gp_ops", "ssd_scan", "topk_gating",
+                             "decode_attention"], force=True)
     probe = finish_probe_build(probe_build)
     emit("build", wall_seconds=time.perf_counter() - t0,
          kernels={n: {"seconds": i.seconds, "library": str(i.path.relative_to(REPO))}
@@ -4013,6 +4215,8 @@ def main(only=None):
         examples_k5 = phase_examples(tmp)
     kernels = (phase_times(errs, launches) + phase_gp_times(gp_errs, gp_launches, exp_f64)
                + phase_new_times(ssd_errs, topk_err, ssm_launches, moe_launches, probe)
+               + phase_decode_times({ARCH: launches["decode_attention"],
+                                     MOE_ARCH: moe_launches["decode_attention"]})
                + phase_fp32_times(
                    {"flash_attention_fp32": errs["engine_prefill_fp32"],
                     "ssd_scan_fp32": ssd_errs["engine_prefill_fp32"]},

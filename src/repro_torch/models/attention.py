@@ -3,8 +3,10 @@
 Port of ``repro/models/attention.py``.  The full-sequence path runs either
 the plain grouped computation (``impl="xla"``, the path the JAX package
 leaves to XLA) or the flash-attention kernel K3 (``impl="flash"``,
-``kernels.flash_attention``).  Decode attention is plain PyTorch in both
-modes, as in the reference.
+``kernels.flash_attention``).  Decode attention on the card is the kernel K6
+in both modes (``kernels.decode_attention``: the rope, the cache write and
+the attention in place on the cache); elsewhere, and for a sharded cache,
+it is ``decode_attention_plain``, the reference's plain computation.
 
 Weights keep the reference layouts: ``wq`` (d, H, dh), ``wk``/``wv``
 (d, Hkv, dh), ``wo`` (H, dh, d).  A cache is ``{"k", "v"}`` of shape
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels import decode_attention as k6
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models.layers import RMSNorm, apply_rope, linear, normal_param
 from repro_torch.parallel.sharding import is_distributed
@@ -164,39 +167,56 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
 
     x: (B, 1, D); pos: an int (aligned batch decode) or a (B,) tensor of
     per-row positions (continuous batching: each row writes and attends at
-    its own causal frontier).  Returns (out (B, 1, D), cache).
+    its own causal frontier).  Returns (out (B, 1, D), cache).  A CUDA
+    tensor goes through K6; a CPU or ``meta`` tensor (the explore loop's
+    count) and a sharded cache through ``decode_attention_plain``.
     """
-    b = x.shape[0]
-    s_max = cache["k"].shape[1]
-    per_slot = torch.is_tensor(pos) and pos.dim() > 0
     q, k_new, v_new = _project(p, x, cfg)
-    if per_slot:
-        posb = pos.to(device=x.device, dtype=torch.long).reshape(b, 1)
+    args = (q, k_new, v_new, cache["k"], cache["v"], pos, cfg.rope_theta)
+    if x.device.type == "cuda" and not (is_distributed(cache["k"]) or is_distributed(x)):
+        o = k6.decode_attention(*args, window=window)
     else:
-        posb = torch.full((b, 1), int(pos), dtype=torch.long, device=x.device)
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+        o = decode_attention_plain(*args, window=window)
+    return _out(p, o), cache
 
-    if is_distributed(cache["k"]):
+
+def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0):
+    """K6's plain version: q (B, 1, H, dh), k_new, v_new (B, 1, Hkv, dh)
+    before rope, the caches (B, S_max, Hkv, dh) written in place at ``pos``
+    (an int or a (B,) tensor) -> o (B, 1, H, dh).
+
+    Ropes q and k_new, writes the new rows (into the shard of a sharded
+    cache that holds the position), and attends over the whole cache under
+    a mask of each row's frontier and window with ``_gqa_attend``.
+    """
+    b, s_max = q.shape[0], cache_k.shape[1]
+    per_slot = torch.is_tensor(pos) and pos.dim() > 0
+    if per_slot:
+        posb = pos.to(device=q.device, dtype=torch.long).reshape(b, 1)
+    else:
+        posb = torch.full((b, 1), int(pos), dtype=torch.long, device=q.device)
+    q = apply_rope(q, posb, theta)
+    k_new = apply_rope(k_new, posb, theta)
+
+    if is_distributed(cache_k):
         if per_slot:
             raise NotImplementedError("per-slot positions into a sharded cache")
-        _write_sharded(cache["k"], int(pos), k_new)
-        _write_sharded(cache["v"], int(pos), v_new)
+        _write_sharded(cache_k, int(pos), k_new)
+        _write_sharded(cache_v, int(pos), v_new)
     elif per_slot:
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, posb[:, 0]] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, posb[:, 0]] = v_new[:, 0].to(cache["v"].dtype)
+        rows = torch.arange(b, device=q.device)
+        cache_k[rows, posb[:, 0]] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, posb[:, 0]] = v_new[:, 0].to(cache_v.dtype)
     else:
-        cache["k"][:, int(pos)] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, int(pos)] = v_new[:, 0].to(cache["v"].dtype)
+        cache_k[:, int(pos)] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, int(pos)] = v_new[:, 0].to(cache_v.dtype)
 
-    idx = torch.arange(s_max, device=x.device)[None, :]
+    idx = torch.arange(s_max, device=q.device)[None, :]
     mask = idx <= posb                   # (B, S): per-row causal frontier
     if window:
         mask &= (posb - idx) < window
     mask = mask[:, None, None, None, :]  # (B, 1, 1, 1, S) over (b,k,r,q,s)
-    o = _gqa_attend(q, cache["k"], cache["v"], cfg.d_head ** -0.5, mask)
-    return _out(p, o), cache
+    return _gqa_attend(q, cache_k, cache_v, q.shape[-1] ** -0.5, mask)
 
 
 @torch.no_grad()

@@ -32,6 +32,8 @@ Spans (``arg`` in brackets) and what an operator reads them for:
   prefill and decode; which share of a step's device time is attention.
 - ``layer.ffn`` (layer index): a layer's dense or MoE feed-forward.
 - ``k5`` (rows): the host path of one launch of the MoE gating kernel K5.
+- ``k6`` (rows): the host path of one call of the decode attention kernel
+  K6 (its checks, two allocations and the ctypes call of its launches).
 
 Counters:
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K3; K1a, K1b, K2; K4, K5) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K3; K1a, K1b, K2; K4, K5; K6) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and nvcc; where PyTorch sees no device
 they skip (decided inside the fixture, so every worker collects the same
@@ -30,6 +30,13 @@ kernels are float64: w, g and the new rows of L and L⁻¹ within
 bitwise equal; K2 also at the row counts where its row splits are
 cut.  K5 also runs on a side stream after a slow producer there, and the
 raw stream accessor the wrappers use must give PyTorch's current stream.
+K6 (decode attention on the cache): at the served shapes and the other
+models' head counts, windows and dtypes, with per-slot and int positions,
+the caches bitwise equal to the plain version's after both, the output at
+the tolerances above against the plain version and within one rounding to
+q's dtype of fp64 attention, bitwise equal across two launches, no host
+synchronisation; a reduced deepseek-moe-16b SlotServer's decode logits
+through K6 against the same server on K6's plain version.
 """
 import numpy as np
 import pytest
@@ -38,6 +45,7 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import BuildFlags, Model
+from repro_torch.models.attention import decode_attention_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -685,3 +693,218 @@ def test_mamba_slot_server_equals_engine_on_the_card(cuda):
     for i, (p, n) in enumerate(zip(prompts, new)):
         solo = Engine(model, max_len=48).generate({"tokens": p[None]}, n)
         assert got[i] == solo.tokens[0].tolist()
+
+
+# ---------------------------------------------------------------------------
+# K6: decode attention in place on the K/V cache
+# ---------------------------------------------------------------------------
+
+def _decode_case(dev, b, s_max, h, hkv, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dtype)
+    k_new, v_new = (torch.randn((b, 1, hkv, d), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+    caches = [torch.randn((b, s_max, hkv, d), generator=g, device=dev).to(dtype)
+              for _ in range(2)]
+    return q, k_new, v_new, caches
+
+
+def _decode_positions(b, s_max, split_len, seed, window=0):
+    """Rows at 0, S_max - 1, a split's last and first position, with a
+    window one whose window starts on a split's first position, the rest
+    spread over the cache."""
+    edges = [0, s_max - 1, split_len - 1, split_len, min(2 * split_len, s_max - 1)]
+    if window:
+        edges.append(min(split_len + window - 1, s_max - 1))
+    rest = np.random.default_rng(seed).integers(0, s_max, max(0, b - len(edges)))
+    return [int(p) for p in (edges + rest.tolist())[:b]]
+
+
+def _decode_reference(q, caches, pos, theta, window):
+    """fp64 attention over the caches the plain version wrote, from the q it
+    ropes (rounded to q's dtype, as K6 rounds it)."""
+    from repro_torch.models.layers import apply_rope
+
+    b, _, h, d = q.shape
+    s_max, hkv = caches[0].shape[1], caches[0].shape[2]
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1).expand(b, 1).long()
+    qr = apply_rope(q, posb, theta).double()
+    k, v = caches[0].double(), caches[1].double()
+    idx = torch.arange(s_max, device=q.device)[None, :]
+    mask = idx <= posb
+    if window:
+        mask &= (posb - idx) < window
+    rep = h // hkv
+    lg = torch.einsum("bkrd,bskd->bkrs", qr[:, 0].reshape(b, hkv, rep, d), k) * d ** -0.5
+    lg = torch.where(mask[:, None, None, :], lg, -torch.inf)
+    o = torch.einsum("bkrs,bskd->bkrd", torch.softmax(lg, dim=-1), v)
+    return o.reshape(b, 1, h, d)
+
+
+@pytest.mark.parametrize("b,s_max,h,hkv,d,window,dtype", [
+    (32, 2560, 16, 16, 128, 0, torch.bfloat16),    # dsmoe16b chat
+    (24, 4096, 16, 16, 128, 0, torch.bfloat16),    # dsmoe16b longdoc
+    (4, 1024, 32, 8, 128, 0, torch.bfloat16),      # GQA 32/8 (jamba, llama4's 40/8 alike)
+    (4, 1024, 32, 8, 128, 0, torch.float32),
+    (8, 2560, 32, 16, 128, 1024, torch.bfloat16),  # gemma3's local layers
+    (4, 600, 32, 2, 128, 0, torch.bfloat16),       # GQA 16 (glm4-9b)
+    (6, 700, 24, 24, 64, 0, torch.float32),        # musicgen-medium
+    (6, 700, 32, 4, 64, 37, torch.bfloat16),       # tinyllama-1.1b, a short window
+    (5, 200, 4, 2, 16, 0, torch.float32),          # the reduced models
+    (5, 200, 4, 2, 16, 70, torch.bfloat16),
+], ids=["chat", "longdoc", "gqa4-bf16", "gqa4-fp32", "window1024", "gqa16", "d64-fp32",
+        "d64-gqa8", "d16-fp32", "d16-bf16"])
+@pytest.mark.parametrize("per_slot", [True, False], ids=["per_slot", "int"])
+def test_decode_attention_matches_plain(cuda, b, s_max, h, hkv, d, window, dtype, per_slot):
+    """K6 against its plain version on the card: the caches bitwise equal
+    after both (the new rows written alike, every other byte untouched), the
+    output within the file's tolerance of the plain version's, and within
+    one rounding to q's dtype of fp64 attention (K6 keeps the logits and
+    probabilities in fp32)."""
+    from repro_torch.kernels import decode_attention as k6
+
+    q, k_new, v_new, caches = _decode_case(cuda, b, s_max, h, hkv, d, dtype, seed=b + d)
+    _, split_len = k6.schedule(s_max, b * hkv)
+    positions = _decode_positions(b, s_max, split_len, seed=d, window=window)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda) if per_slot else positions[3]
+    theta = 10000.0
+    kc = [c.clone() for c in caches]
+    pc = [c.clone() for c in caches]
+    before = k6.decode_attention.launches
+    got = k6.decode_attention(q, k_new, v_new, *kc, pos, theta, window=window)
+    assert k6.decode_attention.launches == before + 1
+    want = decode_attention_plain(q, k_new, v_new, *pc, pos, theta, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+    assert not torch.equal(kc[0], caches[0])
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    ref = _decode_reference(q, pc, pos, theta, window)
+    err = (got.double() - ref).abs()
+    bound = 1e-4 + (2 ** -8 if dtype == torch.bfloat16 else 2e-6) * ref.abs()
+    assert (err <= bound).all(), err.max().item()
+
+
+def test_decode_attention_repeats_bitwise(cuda):
+    from repro_torch.kernels import decode_attention as k6
+
+    q, k_new, v_new, caches = _decode_case(cuda, 32, 2560, 16, 16, 128, torch.bfloat16, seed=3)
+    pos = torch.tensor(_decode_positions(32, 2560, 320, seed=3), dtype=torch.int32, device=cuda)
+    outs = []
+    for _ in range(2):
+        kc = [c.clone() for c in caches]
+        outs.append((k6.decode_attention(q, k_new, v_new, *kc, pos, 1e4), kc))
+    (o1, c1), (o2, c2) = outs
+    assert torch.equal(o1, o2) and torch.equal(c1[0], c2[0]) and torch.equal(c1[1], c2[1])
+
+
+def test_decode_attention_rows_outside_the_cache(cuda):
+    """A row whose position lies outside [0, S_max) writes nothing and gets
+    zeros; the other rows are the plain version's."""
+    from repro_torch.kernels import decode_attention as k6
+
+    q, k_new, v_new, caches = _decode_case(cuda, 3, 700, 8, 2, 64, torch.bfloat16, seed=6)
+    kc = [c.clone() for c in caches]
+    pos = torch.tensor([-1, 700, 650], dtype=torch.int32, device=cuda)
+    got = k6.decode_attention(q, k_new, v_new, *kc, pos, 1e4)
+    assert torch.equal(got[:2], torch.zeros_like(got[:2]))
+    assert torch.equal(kc[0][:2], caches[0][:2]) and torch.equal(kc[1][:2], caches[1][:2])
+    pc = [c[2:].clone() for c in caches]
+    want = decode_attention_plain(q[2:], k_new[2:], v_new[2:], *pc, pos[2:], 1e4)
+    assert torch.equal(kc[0][2:], pc[0]) and torch.equal(kc[1][2:], pc[1])
+    torch.testing.assert_close(got[2:].float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_decode_attention_makes_no_host_sync(cuda):
+    """Neither a per-slot (B,) int32 position tensor nor an int position
+    makes the wrapper read from the device or synchronise."""
+    from repro_torch.kernels import decode_attention as k6
+
+    q, k_new, v_new, caches = _decode_case(cuda, 8, 512, 32, 8, 128, torch.bfloat16, seed=4)
+    pos = torch.arange(100, 108, dtype=torch.int32, device=cuda)
+    k6.decode_attention(q, k_new, v_new, *caches, pos, 1e4)      # builds, plans, frequencies
+    k6.decode_attention(q, k_new, v_new, *caches, 200, 1e4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            k6.decode_attention(q, k_new, v_new, *caches, pos, 1e4)
+            k6.decode_attention(q, k_new, v_new, *caches, 200, 1e4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import decode_attention as k6
+
+    def call(b=2, s=64, h=4, hkv=2, d=64, dtype=torch.float32, window=0, **edit):
+        q, k_new, v_new, caches = _decode_case(cuda, b, s, h, hkv, d, dtype)
+        args = dict(q=q, k_new=k_new, v_new=v_new, cache_k=caches[0], cache_v=caches[1])
+        args.update({k: f(args[k]) for k, f in edit.items()})
+        return k6.decode_attention(args["q"], args["k_new"], args["v_new"], args["cache_k"],
+                                   args["cache_v"], 5, 1e4, window=window)
+
+    with pytest.raises(ValueError, match="head dim"):
+        call(d=48)
+    with pytest.raises(ValueError, match="GQA ratio"):
+        call(h=64, hkv=2)
+    with pytest.raises(ValueError, match="GQA ratio"):
+        call(h=6, hkv=4)
+    with pytest.raises(ValueError, match="dtypes"):
+        call(dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        call(cache_v=lambda c: c.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="window"):
+        call(window=-1)
+    with pytest.raises(ValueError, match="do not match"):
+        call(v_new=lambda t: t[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q=lambda t: torch.cat([t, t], dim=-1)[..., :t.shape[-1]])
+    with pytest.raises(ValueError, match="different devices"):
+        call(cache_k=lambda c: c.cpu())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slot_server_through_k6_matches_the_plain_path(cuda, dtype, monkeypatch):
+    """Reduced deepseek-moe-16b served by a SlotServer (5 requests over 3
+    slots): one K6 launch per attention layer of each decode step, and every
+    decode step's logits within tolerance of the same server on K6's plain
+    version (fp32 5e-5; bf16 2e-2 of max |logit|)."""
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.serve import SlotServer
+
+    cfg = reduced(get_arch("deepseek-moe-16b"))
+    model = Model(cfg, BuildFlags(dtype=dtype, attn_impl="flash"), device=cuda, seed=0)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 19, 7, 30, 11)]
+
+    def serve():
+        logits = []
+        step = model.decode_step
+
+        def recording(tokens, caches, pos):
+            out, caches = step(tokens, caches, pos)
+            logits.append(out.float().cpu())
+            return out, caches
+
+        monkeypatch.setattr(model, "decode_step", recording)
+        srv = SlotServer(model, n_slots=3, max_len=64)
+        for i, p in enumerate(prompts):
+            srv.submit(i, p, 6)
+        srv.run()
+        monkeypatch.undo()
+        return logits
+
+    before = k6.decode_attention.launches
+    got = serve()
+    assert k6.decode_attention.launches - before == n_attn * len(got)
+    monkeypatch.setattr(k6, "decode_attention", decode_attention_plain)
+    want = serve()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
+        else:
+            assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()

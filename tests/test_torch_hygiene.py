@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_attention as k6
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as k4
 from repro_torch.kernels import topk_gating as k5
+from repro_torch.models import attention
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -41,6 +44,8 @@ losses = train.main(["--arch", "deepseek-moe-16b", "--reduced", "--batch", "2", 
                      "--steps", "2", "--log-every", "1", "--device", "cpu"])
 assert sorted(losses) == [1, 2], losses
 assert k4.ssd_scan.launches == k5.topk_gating.launches == fa.flash_attention.launches == 0
+from repro_torch.kernels import decode_attention as k6
+assert k6.decode_attention.launches == 0
 from repro_torch.core import BayesOpt, tpu_pod_space
 from repro_torch.core.search import gp_cuda, gp_torch
 from repro_torch.kernels import gp_ops
@@ -165,22 +170,41 @@ def test_other_devices_raise():
 
 
 def _k4_k5_calls(dev):
-    """(wrapper, its call, the plain version's call) for K4 and K5 on small inputs."""
+    """(wrapper, its call, the plain version's call) for K4, K5 and K6 on small
+    inputs.  K6's call is the model's decode attention, which chooses K6 or
+    its plain version, and writes the caches in place: each call gets its own
+    copy."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((1, 20, 2, 16)).astype(np.float32)
     dt = rng.uniform(0.1, 1.0, (1, 20, 2)).astype(np.float32)
     b, c = rng.standard_normal((2, 1, 20, 16)).astype(np.float32)
     ssd = [torch.from_numpy(a).to(dev) for a in (x, -dt, b, c, dt)]
     logits = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32)).to(dev)
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    attn = attention.Attention(cfg, torch.float32, "cpu", torch.Generator().manual_seed(0)).to(dev)
+    hx = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)).to(dev)
+    caches = torch.from_numpy(rng.standard_normal((2, 2, 24, cfg.n_kv_heads, cfg.d_head))
+                              .astype(np.float32)).to(dev)
+    pos = torch.tensor([3, 23], dtype=torch.int32, device=dev)
+
+    def decode_plain():
+        o = attention.decode_attention_plain(*attention._project(attn, hx, cfg), *caches.clone(),
+                                             pos, cfg.rope_theta, window=8)
+        return attention._out(attn, o)
     return {
         "ssd_scan": (k4.ssd_scan, lambda: k4.ssd_scan(*ssd, chunk=256),
                      lambda: k4.ssd_scan_plain(*ssd, chunk=k4.clamp_chunk(256, 20))),
         "topk_gating": (k5.topk_gating, lambda: k5.topk_gating(logits, 3),
                         lambda: k5.topk_gating_plain(logits, 3)),
+        "decode_attention": (
+            k6.decode_attention,
+            lambda: attention.decode_attention(attn, hx, dict(zip("kv", caches.clone())), pos,
+                                               cfg, window=8)[0],
+            decode_plain),
     }
 
 
-@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating"])
+@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating", "decode_attention"])
 def test_k4_k5_cpu_tensors_take_plain_versions(kernel):
     wrapper, call, plain = _k4_k5_calls("cpu")[kernel]
     before = wrapper.launches
@@ -190,11 +214,12 @@ def test_k4_k5_cpu_tensors_take_plain_versions(kernel):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating"])
+@pytest.mark.parametrize("kernel", ["ssd_scan", "topk_gating", "decode_attention"])
 def test_k4_k5_other_devices_raise(kernel):
     """A meta tensor: K4 raises; K5 returns its outputs' shapes and launches
     nothing (the explore loop's MoE builds on meta), and still raises for a
-    malformed input there."""
+    malformed input there; the model's decode attention takes K6's plain
+    version there (the explore loop's count), and K6 itself raises."""
     wrapper, call, plain = _k4_k5_calls("meta")[kernel]
     if kernel == "ssd_scan":
         with pytest.raises(ValueError, match="cuda or cpu"):
@@ -205,8 +230,14 @@ def test_k4_k5_other_devices_raise(kernel):
     assert wrapper.launches == before
     for g, w in zip(got, _k4_k5_calls("cpu")[kernel][2]()):
         assert g.device.type == "meta" and g.shape == w.shape and g.dtype == w.dtype
-    with pytest.raises(ValueError, match="float32 logits"):
-        k5.topk_gating(torch.empty((4, 8), device="meta", dtype=torch.bfloat16), 2)
+    if kernel == "topk_gating":
+        with pytest.raises(ValueError, match="float32 logits"):
+            k5.topk_gating(torch.empty((4, 8), device="meta", dtype=torch.bfloat16), 2)
+    else:
+        q, kv, cache = (torch.empty(s, device="meta")
+                        for s in ((2, 1, 4, 16), (2, 1, 2, 16), (2, 8, 2, 16)))
+        with pytest.raises(ValueError, match="runs on cuda"):
+            k6.decode_attention(q, kv, kv, cache, cache, 3, 1e4)
 
 
 def test_chip_smoke_refuses_without_a_card():
