@@ -1647,13 +1647,13 @@ def decode_case(b, s_max, h, hkv, d, dt, seed):
     return q, k_new, v_new, caches
 
 
-def check_decode(case, pos, theta, window=0):
+def check_decode(case, pos, theta, window=0, rope=True, scale=None):
     """K6 and its plain version on copies of ``case``'s caches: the caches
     must be bitwise equal after both, and K6's output within one rounding
     to q's dtype of fp64 attention over them (|err| <= 1e-4 + u·|ref|, u
-    2**-8 in bf16, 2e-6 in fp32: the card tests' bound).  Returns (K6's
-    output, the plain version's, the caches K6 wrote, max |err|, the largest
-    share of the bound used)."""
+    2**-8 in bf16, 2e-6 in fp32: the card tests' bound).  ``rope`` and
+    ``scale`` as K6 takes them.  Returns (K6's output, the plain version's,
+    the caches K6 wrote, max |err|, the largest share of the bound used)."""
     import torch
 
     from repro_torch.kernels import decode_attention as k6
@@ -1662,8 +1662,9 @@ def check_decode(case, pos, theta, window=0):
 
     q, k_new, v_new, caches = case
     kc, pc = [c.clone() for c in caches], [c.clone() for c in caches]
-    got = k6.decode_attention(q, k_new, v_new, *kc, pos, theta, window=window)
-    want = decode_attention_plain(q, k_new, v_new, *pc, pos, theta, window=window)
+    kw = dict(window=window, rope=rope, scale=scale)
+    got = k6.decode_attention(q, k_new, v_new, *kc, pos, theta, **kw)
+    want = decode_attention_plain(q, k_new, v_new, *pc, pos, theta, **kw)
     if not (torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])):
         raise AssertionError(f"decode_attention wrote other caches than its plain version "
                              f"at {tuple(caches[0].shape)}, pos {pos}")
@@ -1671,12 +1672,13 @@ def check_decode(case, pos, theta, window=0):
     b, _, h, d = q.shape
     s_max, hkv = kc[0].shape[1], kc[0].shape[2]
     posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1).expand(b, 1).long()
-    qr = apply_rope(q, posb, theta).double()[:, 0].reshape(b, hkv, h // hkv, d)
+    qr = (apply_rope(q, posb, theta) if rope else q).double()[:, 0].reshape(b, hkv, h // hkv, d)
     idx = torch.arange(s_max, device=q.device)[None, :]
     mask = idx <= posb
     if window:
         mask &= (posb - idx) < window
-    lg = torch.einsum("bkrd,bskd->bkrs", qr, kc[0].double()) * d ** -0.5
+    lg = torch.einsum("bkrd,bskd->bkrs", qr, kc[0].double()) * (d ** -0.5 if scale is None
+                                                                 else scale)
     lg = torch.where(mask[:, None, None, :], lg, -torch.inf)
     ref = torch.einsum("bkrs,bskd->bkrd", torch.softmax(lg, dim=-1),
                        kc[1].double()).reshape(b, 1, h, d)
@@ -1790,6 +1792,105 @@ def phase_decode_times(launches=None):
              "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
              "ms": chat["ms"], "plain_ms": chat["plain_ms"], "bound_ms": chat["bound_ms"],
              "bound_by": chat["bound_by"], "library_ms": chat["library_ms"]}]
+
+
+# granite-4.0-h-small's shapes in its longdoc cell (16 slots, prompts of
+# 2048-8192 tokens, max_len 8224): its router (E 72, top 10) at a decode
+# step's 16 rows and an 8192-token prefill; K3 at 32/8 heads of 128 with no
+# rope and the softmax scale 1/128 at three prompt lengths; K6 at 16 rows
+# of the 8224-position cache, positions from 2048-8200, no rope, 1/128
+HYBRID_TOPK_TIMED = [("decode", 16), ("prefill_8192", 8192)]
+HYBRID_K3_TIMED = [2048, 4432, 8192]
+HYBRID_DECODE = (16, 8224, 32, 8, 128, (2048, 8200))
+HYBRID_SCALE = 1 / 128
+
+
+def phase_hybrid_times():
+    """K5, K3 and K6 at granite-4.0-h-small's serving shapes, each held to
+    its plain version first (K5: ids equal, ties included, p within
+    TOPK_P_TOL; K3: the file's bf16 tolerance, and one bf16 rounding of
+    the plain version in fp32; K6: ``check_decode`` with rope off and the
+    model's scale), then timed as a loop, one launch, in a CUDA graph and
+    by the profiler, beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_gating as k5
+
+    for name, t in HYBRID_TOPK_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(t)
+        for ties in (True, False):                  # the timed inputs are the last, untied
+            logits = torch.randn((t, 72), generator=g, device="cuda")
+            if ties:
+                logits = torch.round(logits * 2) / 2
+            p, ids = k5.topk_gating(logits, 10)
+            want_p, want_ids = k5.topk_gating_plain(logits, 10)
+            err = (p - want_p).abs().max().item()
+            if not torch.equal(ids, want_ids) or err > TOPK_P_TOL:
+                raise AssertionError(f"topk_gating at ({t}, 72, 10), ties {ties}: ids differ "
+                                     f"or |p err| {err}")
+
+        def kernel():
+            return k5.topk_gating(logits, 10)
+
+        bound_ms, bound_by = topk_bound(t, 72, 10)
+        row = dict(ms=cuda_ms(kernel, 200), single_ms=single_ms(kernel),
+                   graph_ms=graph_ms(kernel), host_us=host_us(kernel, 2000),
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   **device_times(kernel=kernel))
+        row["bound_share_of_graph"] = bound_ms / row["graph_ms"]
+        emit("time", kernel="topk_gating", case=f"granite_{name}", shape=[t, 72, 10], **row)
+
+    for s in HYBRID_K3_TIMED:
+        q, k, v = qkv(1, s, 32, 8, 128, "bfloat16", seed=s)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=True, scale=HYBRID_SCALE)
+
+        got = kernel()
+        want = fa.flash_attention_plain(q, k, v, causal=True, scale=HYBRID_SCALE)
+        err = (got.float() - want.float()).abs().max().item()
+        del want
+        want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                          scale=HYBRID_SCALE)
+        share = ((got.float() - want32).abs() / (1e-4 + 2 ** -8 * want32.abs())).max().item()
+        del want32
+        if err > TOL["bfloat16"] or share > 1:
+            raise AssertionError(f"flash_attention at (1, {s}, 32, 8, 128), scale 1/128: "
+                                 f"|err| {err}, share of one bf16 rounding {share}")
+        bound_ms, bound_by = flash_bound(1, s, 32, 8, 128, 0, "bfloat16")
+        row = dict(ms=cuda_ms(kernel, 20), single_ms=single_ms(kernel), graph_ms=graph_ms(kernel),
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   max_rounding_share=share, **device_times(kernel=kernel))
+        row["bound_share_of_graph"] = bound_ms / row["graph_ms"]
+        emit("time", kernel="flash_attention", case=f"granite_prefill_{s}",
+             shape=[1, s, 32, 8, 128], scale=HYBRID_SCALE, **row)
+        del q, k, v
+
+    b, s_max, h, hkv, d, (lo, hi) = HYBRID_DECODE
+    case = decode_case(b, s_max, h, hkv, d, torch.bfloat16, seed=29)
+    q, k_new, v_new, _ = case
+    positions = np.random.default_rng(29).integers(lo, hi, b).tolist()
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    _, _, caches, err, share = check_decode(case, pos, 10000.0, rope=False, scale=HYBRID_SCALE)
+    del case
+
+    def kernel():
+        return k6.decode_attention(q, k_new, v_new, *caches, pos, 10000.0, rope=False,
+                                   scale=HYBRID_SCALE)
+
+    bound_ms, bound_by = decode_bound(b, h, hkv, d, "bfloat16", positions)
+    splits, split_len = k6.schedule(s_max, b * hkv)
+    row = dict(ms=cuda_ms(kernel, 100), single_ms=single_ms(kernel), graph_ms=graph_ms(kernel),
+               host_enqueue_us=enqueue_us(kernel), bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=err, max_bound_share=share, **device_times(kernel=kernel))
+    row["bound_share_of_graph"] = bound_ms / row["graph_ms"]
+    emit("time", kernel="decode_attention", case="granite_longdoc", shape=[b, s_max, h, hkv, d],
+         dtype="bfloat16", rope=False, scale=HYBRID_SCALE,
+         positions_mean=float(np.mean(positions)), grid=[splits, hkv, b], split_len=split_len,
+         smem_bytes=k6.smem_bytes(torch.bfloat16, d, h // hkv), **row)
 
 
 # fp32 K3 calls that the main paths make: launch.serve's defaults
@@ -4147,6 +4248,7 @@ def run_only(names, infos):
         "sharded_ssm": lambda: phase_sharded_ssm(SEED),
         "fp32_times": phase_fp32_times,
         "decode_times": phase_decode_times,
+        "hybrid_times": phase_hybrid_times,
         "serve_fp32": lambda: phase_serve_fp32(SEED),
         "examples": lambda: phase_examples(tempfile.mkdtemp(prefix="examples")),
     }
@@ -4222,6 +4324,7 @@ def main(only=None):
                     "ssd_scan_fp32": ssd_errs["engine_prefill_fp32"]},
                    {"flash_attention_fp32": serve_fp32[ARCH]["flash_attention"],
                     "ssd_scan_fp32": serve_fp32[SSM_ARCH]["ssd_scan"]}))
+    phase_hybrid_times()
     paths = {"flash_attention": {ARCH: launches["flash_attention"],
                                  MOE_ARCH: moe_launches["flash_attention"], **frontend_launches},
              "flash_attention_fp32": {

@@ -81,6 +81,13 @@ class ArchConfig:
     # -- misc -------------------------------------------------------------------
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    # -- port only (the JAX package has none of these; each default leaves
+    # the computation as it is) ---------------------------------------------------
+    attn_scale: float = 0.0           # attention softmax scale; 0: d_head ** -0.5
+    rope: bool = True                 # False: no rotary embedding (NoPE attention)
+    embedding_multiplier: float = 1.0  # token embeddings times this
+    residual_multiplier: float = 1.0   # each mixer and FFN output times this, before its add
+    logits_scaling: float = 1.0        # logits divided by this
     # Whether the arch has a sub-quadratic long-context path (long_500k runs).
     subquadratic: bool = False
 
@@ -90,6 +97,10 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attn_scale if self.attn_scale else self.d_head ** -0.5
 
     @property
     def d_inner(self) -> int:

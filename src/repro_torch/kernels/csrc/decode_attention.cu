@@ -13,9 +13,11 @@
 // batch): rope on q and the new k in fp32 as models.layers.apply_rope does
 // (angles p * inv, inv the plain rope_freqs passed in; x1 c - x2 s and
 // x2 c + x1 s, each product and sum rounded as PyTorch's separate ops round
-// them; rounded to the model's dtype), the new k and v rows written into the
+// them; rounded to the model's dtype), or no rope where the plan has no
+// frequencies (NoPE attention), the new k and v rows written into the
 // cache at p, then attention of the rep query heads of each kv head over
-// positions max(0, p - window + 1) .. p (window 0: 0 .. p), scale D**-0.5.
+// positions max(0, p - window + 1) .. p (window 0: 0 .. p) at the plan's
+// softmax scale (D**-0.5 unless the model sets another).
 // Logits, probabilities and P V stay in fp32 (the plain version rounds the
 // logits and the probabilities to bf16 in a bf16 model); the output is
 // rounded once, to q's dtype.  A row whose p lies outside [0, S_max) writes
@@ -208,11 +210,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   // Rope's angles for this row, then q's rep heads (and the new k row where
   // this block holds p), each rotated as apply_rope does and rounded to T.
-  for (int j = tid; j < H2; j += NT) {
-    const float ang = __fmul_rn(static_cast<float>(p_hi), inv[j]);
-    cs[j] = cosf(ang);
-    cs[H2 + j] = sinf(ang);
-  }
+  if (inv)
+    for (int j = tid; j < H2; j += NT) {
+      const float ang = __fmul_rn(static_cast<float>(p_hi), inv[j]);
+      cs[j] = cosf(ang);
+      cs[H2 + j] = sinf(ang);
+    }
   for (int r = tid; r < rep; r += NT) {
     run_m[r] = -INFINITY;
     run_l[r] = 0.f;
@@ -222,6 +225,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   for (int i = tid; i < rep * H2; i += NT) {
     const int r = i / H2, j = i % H2;
     const float x1 = El::f(qb[r * D + j]), x2 = El::f(qb[r * D + H2 + j]);
+    if (!inv) {  // no rope: q as it is
+      qs[r * D + j] = x1;
+      qs[r * D + H2 + j] = x2;
+      continue;
+    }
     const float c = cs[j], s = cs[H2 + j];
     qs[r * D + j] = El::f(El::cast(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s))));
     qs[r * D + H2 + j] = El::f(El::cast(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s))));
@@ -231,10 +239,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     const T* vb = v_new + ((size_t)b * Hkv + kvh) * D;
     const size_t g = cache_base + (size_t)p_hi * row_stride;
     for (int j = tid; j < H2; j += NT) {
-      const float x1 = El::f(kb[j]), x2 = El::f(kb[H2 + j]);
-      const float c = cs[j], s = cs[H2 + j];
-      const T lo = El::cast(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-      const T hi = El::cast(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s)));
+      T lo = kb[j], hi = kb[H2 + j];
+      if (inv) {
+        const float x1 = El::f(lo), x2 = El::f(hi);
+        const float c = cs[j], s = cs[H2 + j];
+        lo = El::cast(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
+        hi = El::cast(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s)));
+      }
       kn[j] = lo;
       kn[H2 + j] = hi;
       cache_k[g + j] = lo;
@@ -425,7 +436,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 struct Plan {
   int dtype, B, S, Hkv, rep, D, window, splits, split_len, device;
   float scale;
-  const float* inv;       // rope_freqs(D, theta) on the device
+  const float* inv;       // rope_freqs(D, theta) on the device; null: no rope
   float* part;            // B * Hkv * splits * rep * (D + 2) floats when splits > 1
   unsigned int* tickets;  // B * Hkv counters, zero between launches, when splits > 1
 };
@@ -490,7 +501,8 @@ int smem_of(int D, int rep) {
 extern "C" {
 
 // A plan for launches of one shape: dtype 0 = float32, 1 = bfloat16; inv
-// the D / 2 inverse frequencies on `device`; part and tickets as in Plan
+// the D / 2 inverse frequencies on `device`, or null for no rope; scale the
+// softmax scale; part and tickets as in Plan
 // (the tickets zeroed), both unused when splits == 1.  Returns the plan's
 // index (>= 0), or minus a cudaError_t when the shape is not taken.
 int decode_attention_plan(int dtype, int B, int S, int Hkv, int rep, int D, int window,
@@ -499,7 +511,7 @@ int decode_attention_plan(int dtype, int B, int S, int Hkv, int rep, int D, int 
   if (B <= 0 || B > 65535 || S <= 0 || Hkv <= 0 || Hkv > 65535 || rep <= 0 ||
       rep > MAX_REP || window < 0 || splits <= 0 || split_len <= 0 ||
       split_len % SPLIT_ALIGN || (long)(splits - 1) * split_len >= S ||
-      (long)splits * split_len < S || (splits > 1 && (!part || !tickets)) || !inv ||
+      (long)splits * split_len < S || (splits > 1 && (!part || !tickets)) ||
       device < 0 || device >= MAX_DEVICES || n_plans >= MAX_PLANS)
     return -(int)cudaErrorInvalidValue;
   const LaunchFn fn = dtype == 0 ? by_dim<float>(D, rep)

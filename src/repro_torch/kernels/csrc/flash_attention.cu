@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (and the layout/padding wrapper repro/kernels/ops.py::flash_attention).
-// It computes the same function: scale d**-0.5, causal mask with an optional
+// It computes the same function: scale d**-0.5 (the caller passes the scale,
+// so a model may set another), causal mask with an optional
 // sliding window, query head h reading KV head h / (H / Hkv), fp32 running
 // max / sum / accumulator with the online-softmax update, output in the input
 // dtype.

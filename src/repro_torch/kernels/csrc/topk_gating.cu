@@ -14,8 +14,10 @@
 // holds columns l, l + 32, ... (at most 8, so E <= 256); the max and the sum
 // go through xor shuffles, and each argmax step reduces (value, index) pairs
 // the same way under a total order (larger value, then smaller index), so
-// every lane agrees on the pick.  k <= 8 results are kept in lanes 0..k-1
-// and written once.  Sums run in a fixed order: two launches on the same
+// every lane agrees on the pick.  k <= 32 results are kept in lanes 0..k-1
+// (result i in lane i) and written once; k is a loop bound, so k = 6
+// (deepseek-moe-16b) and k = 10 of E = 72 (granite-4.0-h-small) run the
+// same code.  Sums run in a fixed order: two launches on the same
 // inputs are bitwise equal.
 //
 // What bounds it on an H100: at deepseek-moe-16b's router (E = 64, k = 6)
@@ -35,7 +37,7 @@ constexpr int NT = 256;          // threads per block
 constexpr int ROWS = NT / 32;    // rows per block, one warp each
 constexpr int MAX_E = 256;
 constexpr int EPL = MAX_E / 32;  // columns per lane
-constexpr int MAX_K = 8;
+constexpr int MAX_K = 32;        // a lane per result
 
 __global__ void __launch_bounds__(NT)
 topk_gating_kernel(const float* __restrict__ logits, float* __restrict__ top_p,

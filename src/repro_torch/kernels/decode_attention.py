@@ -15,9 +15,11 @@ The CUDA kernel is in ``csrc/decode_attention.cu`` (built by
 ``kernels.build`` with nvcc for ``sm_90a`` and called through ``ctypes``).
 For each row b at position p = ``pos[b]`` it ropes q and the new k in fp32
 as ``apply_rope`` does (the wrapper passes ``rope_freqs``' inverse
-frequencies, computed once per (d, θ, device)), writes the new k and v rows
-into the cache at p, and attends q's heads over positions
-max(0, p − window + 1) … p, reading K and V where they lie.  The logits,
+frequencies, computed once per (d, θ, device); with ``rope=False``, for NoPE
+attention, it passes none and the kernel ropes nothing), writes the new k
+and v rows into the cache at p, and attends q's heads over positions
+max(0, p − window + 1) … p at softmax scale ``scale`` (d ** -0.5 by
+default), reading K and V where they lie.  The logits,
 the probabilities and P·V stay in fp32 (the plain version rounds the first
 two to bf16 in a bf16 model); the output is rounded once, to q's dtype.
 
@@ -55,7 +57,7 @@ SPLIT_ALIGN = 64                  # a split's length is a multiple of every tile
 TARGET_BLOCKS = 32 * 132          # blocks were every row full: 32 for each H100 SM
 TILES = {torch.float32: 32, torch.bfloat16: 64}   # key rows per ring stage
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PLANS = {}                       # (shapes, dtypes, devices, window, theta, stream) -> _plan
+_PLANS = {}             # (shapes, dtypes, devices, window, theta, rope, scale, stream) -> _plan
 
 
 def schedule(s_max: int, rows: int):
@@ -92,7 +94,7 @@ def smem_bytes(dtype, d: int, rep: int) -> int:
     return n
 
 
-def _plan(q, k_new, v_new, cache_k, cache_v, theta, window):
+def _plan(q, k_new, v_new, cache_k, cache_v, theta, window, rope, scale):
     """Check what the kernel takes at these shapes, then make what a launch
     at them needs: (the C plan's index, the run entry point, the tensors the
     plan points to, kept alive here)."""
@@ -123,7 +125,7 @@ def _plan(q, k_new, v_new, cache_k, cache_v, theta, window):
     from repro_torch.models.layers import rope_freqs   # the models import this module
 
     splits, split_len = schedule(s_max, b * hkv)
-    inv = rope_freqs(d, theta, q.device)
+    inv = rope_freqs(d, theta, q.device) if rope else None
     part = tickets = None
     if splits > 1:
         part = torch.empty(b * hkv * splits * (h // hkv) * (d + 2), dtype=torch.float32,
@@ -131,8 +133,9 @@ def _plan(q, k_new, v_new, cache_k, cache_v, theta, window):
         tickets = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
     lib = _lib()
     plan = lib.decode_attention_plan(
-        _DTYPE_CODES[q.dtype], b, s_max, hkv, h // hkv, d, window, d ** -0.5, splits,
-        split_len, q.device.index, inv.data_ptr(), part.data_ptr() if splits > 1 else None,
+        _DTYPE_CODES[q.dtype], b, s_max, hkv, h // hkv, d, window,
+        d ** -0.5 if scale is None else scale, splits, split_len, q.device.index,
+        inv.data_ptr() if rope else None, part.data_ptr() if splits > 1 else None,
         tickets.data_ptr() if splits > 1 else None)
     if plan < 0:
         raise RuntimeError(f"decode_attention refused the plan: cudaError {-plan} "
@@ -140,11 +143,14 @@ def _plan(q, k_new, v_new, cache_k, cache_v, theta, window):
     return plan, lib.decode_attention_run, (inv, part, tickets)
 
 
-def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0):
+def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0, rope=True,
+                     scale=None):
     """One-token decode: q (B, 1, H, d), the new token's k, v (B, 1, Hkv, d)
     before rope, the caches (B, S_max, Hkv, d) written in place at ``pos``
     (an int, or a (B,) tensor of per-row positions) -> o (B, 1, H, d) in q's
-    dtype, attended over max(0, p − window + 1) … p (``window`` 0: 0 … p).
+    dtype, attended over max(0, p − window + 1) … p (``window`` 0: 0 … p)
+    at softmax scale ``scale`` (None: d ** -0.5); ``rope=False`` ropes
+    neither q nor k.
 
     Launches the CUDA kernel or raises; the model takes the plain version
     for tensors elsewhere.  A row whose position lies outside [0, S_max) is
@@ -159,10 +165,11 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0)
         key = (q.shape, k_new.shape, v_new.shape, cache_k.shape, cache_v.shape, q.dtype,
                k_new.dtype, v_new.dtype, cache_k.dtype, cache_v.dtype, idx, k_new.get_device(),
                v_new.get_device(), cache_k.get_device(), cache_v.get_device(), window, theta,
-               stream)
+               rope, scale, stream)
         plan = _PLANS.get(key)
         if plan is None:
-            plan = _PLANS[key] = _plan(q, k_new, v_new, cache_k, cache_v, theta, window)
+            plan = _PLANS[key] = _plan(q, k_new, v_new, cache_k, cache_v, theta, window, rope,
+                                       scale)
         if not (q.is_contiguous() and k_new.is_contiguous() and v_new.is_contiguous()
                 and cache_k.is_contiguous() and cache_v.is_contiguous()):
             raise ValueError("decode_attention wants contiguous q, k_new, v_new and caches")

@@ -49,11 +49,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FITS = set()          # (device, dtype, d) whose shared memory was checked
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0):
+def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     """Plain PyTorch version: q (B, Sq, H, d); k, v (B, Skv, Hkv, d) -> (B, Sq, H, d).
 
     Follows ``ref.flash_attention_ref``: logits formed in the input dtype and
-    then cast to fp32, fp32 softmax, P @ V in fp32, cast back to q's dtype.
+    then cast to fp32, times ``scale`` (None: d ** -0.5), fp32 softmax, P @ V
+    in fp32, cast back to q's dtype.
     """
     b, sq, h, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -61,7 +62,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0):
     if n_rep > 1:
         k = torch.repeat_interleave(k, n_rep, dim=2)
         v = torch.repeat_interleave(v, n_rep, dim=2)
-    logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * scale
     iq = torch.arange(sq, device=q.device)[:, None] + (skv - sq)  # right-aligned
     ik = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -171,8 +173,9 @@ def _check(q, k, v, window):
         raise ValueError(f"B*H={b * h} exceeds the grid's 65535 rows")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256):
-    """q: (B, S, H, d); k, v: (B, S, Hkv, d) -> (B, S, H, d).
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=256, block_kv=256):
+    """q: (B, S, H, d); k, v: (B, S, Hkv, d) -> (B, S, H, d), at softmax
+    scale ``scale`` (None: d ** -0.5).
 
     A CPU tensor goes through ``flash_attention_plain``.  A CUDA tensor
     launches the CUDA kernel or raises.  ``block_q``/``block_kv`` are the
@@ -181,7 +184,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
     shared memory and registers.
     """
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, window)
@@ -193,7 +196,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=256, block_kv=256
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
-        int(window), d ** -0.5, dev, build.current_stream(dev))
+        int(window), d ** -0.5 if scale is None else scale, dev, build.current_stream(dev))
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: cudaError {err} ({msg})")

@@ -9,7 +9,9 @@ comes first.
 
 The CUDA kernel is ``csrc/topk_gating.cu`` (built by ``kernels.build`` with
 nvcc for ``sm_90a`` and called through ``ctypes``): one warp per token row,
-the softmax's max and sum through shuffles, then k argmax-and-mask steps.
+the softmax's max and sum through shuffles, then k argmax-and-mask steps
+(k up to a warp's 32 lanes: deepseek-moe-16b's 6 of 64, granite-4.0-h's 10
+of 72).
 It masks the ragged T itself, so there is no ``block_t`` padding.
 
 What bounds it on an H100: at deepseek-moe-16b's router (E = 64, k = 6) the
@@ -40,7 +42,7 @@ from repro_torch import trace
 from repro_torch.kernels import build
 
 MAX_EXPERTS = 256
-MAX_K = 8
+MAX_K = 32          # the kernel keeps result i in lane i of the row's warp
 
 
 def topk_gating_plain(logits, k):
@@ -115,7 +117,7 @@ def _forward(logits, k):
         return out_buffers(logits, k)
     if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu, not {dev}")
-    with trace.span("k5", logits.shape[0]):
+    with trace.span("k5", (logits.shape[0], k)):
         _check(logits, k)
         t, e = logits.shape
         top_p, top_ids = out_buffers(logits, k)

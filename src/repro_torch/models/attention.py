@@ -22,6 +22,10 @@ path on them, or, with ``impl="flash"``, K3 on each rank's block
 with q's sequence gathered and beside whole kv heads with each rank's kv
 heads sliced; ``decode_attention`` writes the new token into the shard of
 a sequence-sharded cache that holds its position.
+
+Two settings of the configuration reach every path: ``cfg.rope`` (False:
+no rotary embedding, as in NoPE attention) and ``cfg.softmax_scale`` (the
+configured ``attn_scale``, or d ** -0.5 by default).
 """
 from __future__ import annotations
 
@@ -90,15 +94,17 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     cache = {"k": k, "v": v}
     if policy is not None:
         q = policy.constrain_attn_q(q)
         k = policy.constrain_attn_kv(k)
         v = policy.constrain_attn_kv(v)
     if impl == "flash":
-        kw = dict(causal=True, window=window, block_q=attn_block_q, block_kv=attn_block_kv)
+        kw = dict(causal=True, window=window, scale=cfg.softmax_scale, block_q=attn_block_q,
+                  block_kv=attn_block_kv)
         o = _flash_blocks(q, k, v, **kw) if is_distributed(q) else flash_attention(q, k, v, **kw)
     elif impl == "xla":
         idx_q = torch.arange(s, device=x.device)[:, None]
@@ -106,7 +112,7 @@ def full_attention(p: Attention, x, cfg, *, window=0, positions=None, impl="xla"
         mask = idx_k <= idx_q
         if window:
             mask &= (idx_q - idx_k) < window
-        o = _gqa_attend(q, k, v, cfg.d_head ** -0.5, mask)
+        o = _gqa_attend(q, k, v, cfg.softmax_scale, mask)
     else:
         raise ValueError(f"attn_impl {impl!r}: want 'xla' or 'flash'")
     return _out(p, o), cache
@@ -173,21 +179,24 @@ def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
     """
     q, k_new, v_new = _project(p, x, cfg)
     args = (q, k_new, v_new, cache["k"], cache["v"], pos, cfg.rope_theta)
+    kw = dict(window=window, rope=cfg.rope, scale=cfg.softmax_scale)
     if x.device.type == "cuda" and not (is_distributed(cache["k"]) or is_distributed(x)):
-        o = k6.decode_attention(*args, window=window)
+        o = k6.decode_attention(*args, **kw)
     else:
-        o = decode_attention_plain(*args, window=window)
+        o = decode_attention_plain(*args, **kw)
     return _out(p, o), cache
 
 
-def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0):
+def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0,
+                           rope=True, scale=None):
     """K6's plain version: q (B, 1, H, dh), k_new, v_new (B, 1, Hkv, dh)
     before rope, the caches (B, S_max, Hkv, dh) written in place at ``pos``
     (an int or a (B,) tensor) -> o (B, 1, H, dh).
 
-    Ropes q and k_new, writes the new rows (into the shard of a sharded
-    cache that holds the position), and attends over the whole cache under
-    a mask of each row's frontier and window with ``_gqa_attend``.
+    Ropes q and k_new (unless ``rope`` is False), writes the new rows (into
+    the shard of a sharded cache that holds the position), and attends over
+    the whole cache under a mask of each row's frontier and window with
+    ``_gqa_attend``, at softmax scale ``scale`` (None: dh ** -0.5).
     """
     b, s_max = q.shape[0], cache_k.shape[1]
     per_slot = torch.is_tensor(pos) and pos.dim() > 0
@@ -195,8 +204,9 @@ def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, pos, theta, *, win
         posb = pos.to(device=q.device, dtype=torch.long).reshape(b, 1)
     else:
         posb = torch.full((b, 1), int(pos), dtype=torch.long, device=q.device)
-    q = apply_rope(q, posb, theta)
-    k_new = apply_rope(k_new, posb, theta)
+    if rope:
+        q = apply_rope(q, posb, theta)
+        k_new = apply_rope(k_new, posb, theta)
 
     if is_distributed(cache_k):
         if per_slot:
@@ -216,7 +226,8 @@ def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, pos, theta, *, win
     if window:
         mask &= (posb - idx) < window
     mask = mask[:, None, None, None, :]  # (B, 1, 1, 1, S) over (b,k,r,q,s)
-    return _gqa_attend(q, cache_k, cache_v, q.shape[-1] ** -0.5, mask)
+    return _gqa_attend(q, cache_k, cache_v, q.shape[-1] ** -0.5 if scale is None else scale,
+                       mask)
 
 
 @torch.no_grad()

@@ -17,6 +17,12 @@ to the reference's placements (its ``model.py:72-81``), and the layers
 constrain the residual stream.  Plain tensors created inside (positions,
 masks) count as replicated.
 
+Three settings of the configuration scale the stream where a model
+publishes them (granite-4.0-h): the token embeddings times
+``embedding_multiplier``, the logits divided by ``logits_scaling``, in
+prefill, decode and the training loss alike (and ``residual_multiplier`` in
+``models.transformer``); at their default of 1 nothing is computed.
+
 Frontends are stubs, as in the reference: a vision arch takes precomputed
 patch embeddings (``image_embeds``, (B, F, d)) that go through one (d, d)
 projection ``frontend.proj`` and are put ahead of the text embeddings; an
@@ -36,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import Embedding, LMHead, RMSNorm, linear, normal_param
 from repro_torch.parallel.sharding import is_distributed, maybe_context
 
@@ -141,13 +147,18 @@ class Model(nn.Module):
         vocabulary's shares over model (``ShardingPolicy.vocab_lookup``)."""
         tokens = self._tokens(tokens)
         if not is_distributed(tokens):
-            return self.embed(tokens)
-        return self.policy.vocab_lookup(self.embed.table, tokens)
+            x = self.embed(tokens)
+        else:
+            x = self.policy.vocab_lookup(self.embed.table, tokens)
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
 
     def _logits(self, hidden):
         h = self.final_norm(hidden, self.cfg.norm_eps)
         w = self.embed.table.T if self.cfg.tie_embeddings else self.head.w
         logits = linear(h, w)
+        if self.cfg.logits_scaling != 1.0:
+            logits = logits / self.cfg.logits_scaling
         if self.policy is not None:
             logits = self.policy.constrain_logits(logits)
         return logits
@@ -211,6 +222,8 @@ class Model(nn.Module):
             hidden, _, caches = self.stack.forward_full(x, self.flags, want_cache=True,
                                                         policy=self.policy)
             logits = self._logits(hidden[:, -1:, :])[:, 0]
+            if trace.enabled():
+                moe.count_routing()
         return logits, caches
 
     def decode_step(self, tokens, caches, pos):
@@ -222,7 +235,10 @@ class Model(nn.Module):
         with trace.span("model.decode_step", tokens.shape[0]), maybe_context(self.policy):
             x = self._token_embeds(tokens)
             hidden, caches = self.stack.forward_decode(x, caches, pos, self.policy)
-            return self._logits(hidden)[:, 0], caches
+            logits = self._logits(hidden)[:, 0]
+            if trace.enabled():
+                moe.count_routing()
+            return logits, caches
 
     def reference_leaves(self):
         """[(parameter names, stacked?)] per leaf of the reference's param

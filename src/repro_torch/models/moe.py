@@ -19,6 +19,12 @@ full softmax over the experts, which K5 does not return, so the loss takes
 a plain ``softmax`` of the same fp32 logits beside K5 (a K5 that also
 emits per-expert sums is queued in ROADMAP).  Serving does not want the
 loss: with ``want_aux=False`` it is not computed and ``None`` comes back.
+
+While tracing is on (``repro_torch.trace``) each dispatch adds its routed
+assignments and those dropped over capacity to a tally, which
+``count_routing`` records as the counters ``moe.assignments`` and
+``moe.dropped`` once a model step (the drops as a device count: no host
+sync).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.kernels.topk_gating import topk_gating
 from repro_torch.models.layers import MLP, RMSNorm, linear, mlp, normal_param, rmsnorm
 from repro_torch.parallel.sharding import is_distributed
@@ -52,6 +59,19 @@ class MoE(nn.Module):
         self.experts = Experts(e, d, f, dtype, device, generator)
         if cfg.n_shared_experts:
             self.shared = MLP(d, cfg.n_shared_experts * f, dtype, device, generator)
+
+
+_tally = [0, None]       # assignments and drops (a 0-dim device tensor) since the last sample
+
+
+def count_routing():
+    """Record ``moe.assignments`` and ``moe.dropped``, the sums over the
+    dispatches since the last call (the model calls it once a step while
+    tracing is on), and start the tally anew."""
+    if _tally[0]:
+        trace.count("moe.assignments", _tally[0])
+        trace.count("moe.dropped", _tally[1])
+    _tally[0], _tally[1] = 0, None
 
 
 def expert_capacity(n_tokens, cfg):
@@ -184,6 +204,10 @@ def dispatch(h, gate_logits, cfg, want_aux: bool, groups: int, experts):
     seg = top_ids + (gid * e)[:, None] if g > 1 else top_ids
     rank = _rank_in_expert(seg.reshape(t * k), g * e).reshape(t, k)
     keep = rank < c
+    if trace.enabled():
+        dropped = (~keep).sum()
+        _tally[0] += t * k
+        _tally[1] = dropped if _tally[1] is None else _tally[1] + dropped
     row = e * c + 1                                          # a group's rows, sentinel last
     slot = torch.where(keep, top_ids * c + rank, e * c)      # drops -> sentinel
     if g > 1:

@@ -12,6 +12,8 @@ attention mixer, ``{"state", "conv"}`` for a Mamba-2 mixer.
 
 Mixers: ``attn``, ``attn_local`` (``models.attention``) and ``mamba``
 (``models.mamba2``); FFNs: ``dense``, ``moe`` (``models.moe``) and ``none``.
+Each mixer's and FFN's output is added to the residual stream times the
+configuration's ``residual_multiplier`` (1 by default: a plain add).
 
 Training (``forward_full`` without caches, with gradients on) sums the MoE
 layers' auxiliary losses and checkpoints activations per layer as
@@ -83,18 +85,23 @@ class Layer(nn.Module):
         elif spec.ffn == "moe":
             self.ffn = moe.MoE(cfg, dtype, device, generator)
 
+    def _residual(self, x, h):
+        """x + r · h, r the configuration's ``residual_multiplier`` (1: x + h)."""
+        r = self.cfg.residual_multiplier
+        return x + h if r == 1.0 else x + h * r
+
     def _ffn(self, x, want_aux=False, policy=None, grouped=True):
-        """(x + ffn(x), the MoE's aux loss or None)."""
+        """(x + r · ffn(x), the MoE's aux loss or None)."""
         if self.ffn_kind not in ("dense", "moe"):
             return x, None
         with trace.span("layer.ffn", self.index):
             if self.ffn_kind == "dense":
-                x = x + self.ffn(x, self.cfg.norm_eps)
+                x = self._residual(x, self.ffn(x, self.cfg.norm_eps))
                 aux = None
             else:
                 y, aux = moe.moe_ffn(self.ffn, x, self.cfg, want_aux=want_aux, policy=policy,
                                      grouped=grouped)
-                x = x + y
+                x = self._residual(x, y)
         if policy is not None:
             x = policy.constrain_residual(x)
         return x, aux
@@ -112,7 +119,7 @@ class Layer(nn.Module):
                                                       flags.ssd_impl, want_cache)
             else:
                 h, cache = mamba2.mamba_block(self.mixer, x, self.cfg, impl=flags.ssd_impl)
-        x = x + h
+        x = self._residual(x, h)
         if policy is not None:
             x = policy.constrain_residual(x)
         x, aux = self._ffn(x, want_aux, policy)
@@ -128,7 +135,7 @@ class Layer(nn.Module):
             else:
                 h, cache = mamba2.mamba_decode(self.mixer, x, cache, self.cfg)
         # the reference's decode MoE takes one dispatch group (policy None there)
-        return self._ffn(x + h, policy=policy, grouped=False)[0], cache
+        return self._ffn(self._residual(x, h), policy=policy, grouped=False)[0], cache
 
 
 def _group_layout(cfg: ArchConfig):

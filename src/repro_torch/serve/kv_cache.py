@@ -43,6 +43,9 @@ class SlotServer:
         self.max_len = max_len
         self.eos_id = eos_id
         self.caches = model.empty_caches(n_slots, max_len)
+        # bytes of recurrent state (a Mamba layer's state and conv window) a slot holds
+        self.slot_state_bytes = sum(t[0].numel() * t.element_size() for c in self.caches
+                                    if "state" in c for t in c.values())
         self.pos = np.zeros(n_slots, np.int32)        # next write position
         self.active: List[Optional[Request]] = [None] * n_slots
         self.finished: List[Request] = []
@@ -106,6 +109,7 @@ class SlotServer:
                 trace.count("serve.kv_used", sum(int(self.pos[s]) for s in range(self.n_slots)
                                                  if self.active[s] is not None))
                 trace.count("serve.kv_reserved", self.n_slots * self.max_len)
+                trace.count("serve.state_bytes", len(busy) * self.slot_state_bytes)
         return len(busy)
 
     def _decode(self, busy: List[int]) -> None:

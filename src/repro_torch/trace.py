@@ -31,7 +31,8 @@ Spans (``arg`` in brackets) and what an operator reads them for:
 - ``layer.attn`` / ``layer.mamba`` (layer index): a layer's mixer, in
   prefill and decode; which share of a step's device time is attention.
 - ``layer.ffn`` (layer index): a layer's dense or MoE feed-forward.
-- ``k5`` (rows): the host path of one launch of the MoE gating kernel K5.
+- ``k5`` ((rows, k)): the host path of one launch of the MoE gating kernel
+  K5, routing each row to k experts.
 - ``k6`` (rows): the host path of one call of the decode attention kernel
   K6 (its checks, two allocations and the ctypes call of its launches).
 
@@ -41,6 +42,14 @@ Counters:
   of their ``pos``), and ``serve.kv_reserved`` beside it, the positions the
   cache was allocated for (slots × ``max_len``); their ratio is the share of
   the K/V cache a deployment of this size puts to use.
+- ``serve.state_bytes``: once a step beside them, the bytes of recurrent
+  state the busy slots hold (each Mamba layer's fp32 state and conv window:
+  fixed per slot, whatever its length), which ``serve.kv_used`` does not see.
+- ``moe.assignments`` and ``moe.dropped``: once a model step
+  (``Model.prefill``, ``Model.decode_step``), the routed (token, expert)
+  assignments of its MoE layers and those dropped over an expert's
+  capacity; ``moe.dropped``'s value is a 0-dim device tensor, so that
+  counting makes no host sync (read it once the run is over).
 
 The kernels' launch counters (``kernels.*.launches``) are separate: they
 are always on, and tests read them to tell which route a call took.

@@ -1,4 +1,10 @@
-"""The port's config data and parameter counts equal the JAX package's."""
+"""The port's config data and parameter counts equal the JAX package's.
+
+The port's ``ArchConfig`` has fields the JAX package's lacks (``PORT_ONLY``:
+the softmax scale, rotary on or off, and three stream multipliers that
+granite-4.0-h sets); every registered architecture leaves them at their
+neutral defaults, and every other field equals the JAX package's.
+"""
 import dataclasses
 
 import pytest
@@ -11,6 +17,15 @@ from repro_torch.models import transformer
 from repro_torch.models.model import count_params_analytic
 
 NAMES = jconfigs.list_archs()
+PORT_ONLY = {"attn_scale": 0.0, "rope": True, "embedding_multiplier": 1.0,
+             "residual_multiplier": 1.0, "logits_scaling": 1.0}
+
+
+def _shared_fields(cfg):
+    """``asdict(cfg)`` without the port-only fields, which must sit at their defaults."""
+    out = dataclasses.asdict(cfg)
+    assert {k: out.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return out
 
 
 def test_registry_and_shapes_match():
@@ -26,8 +41,11 @@ def test_registry_and_shapes_match():
 @pytest.mark.parametrize("name", NAMES)
 def test_arch_config_matches(name):
     cfg, jcfg = configs.get_arch(name), jconfigs.get_arch(name)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(configs.reduced(cfg)) == dataclasses.asdict(jconfigs.reduced(jcfg))
+    assert set(PORT_ONLY) == ({f.name for f in dataclasses.fields(cfg)}
+                              - {f.name for f in dataclasses.fields(jcfg)})
+    assert _shared_fields(cfg) == dataclasses.asdict(jcfg)
+    assert _shared_fields(configs.reduced(cfg)) == dataclasses.asdict(jconfigs.reduced(jcfg))
+    assert cfg.softmax_scale == cfg.d_head ** -0.5
     for shape in configs.SHAPES:
         assert (configs.shape_applicable(cfg, configs.SHAPES[shape])
                 == jconfigs.shape_applicable(jcfg, jconfigs.SHAPES[shape]))

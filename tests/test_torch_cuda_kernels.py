@@ -555,6 +555,9 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     (256, 64, 6, True),     # rows with exact ties
     (1, 64, 6, False), (37, 64, 6, True), (1000, 16, 4, False),   # T off any block
     (33, 256, 8, False), (40, 4, 4, True), (9, 2, 2, True),
+    (16, 72, 10, False), (16, 72, 10, True),          # granite-4.0-h: a decode step's rows
+    (8192, 72, 10, False), (8192, 72, 10, True),      # and its longest prefill
+    (5, 64, 32, True),                                # k at a warp's 32 lanes
 ])
 def test_topk_kernel_matches_plain(cuda, t, e, k, ties):
     from repro_torch.kernels import topk_gating as k5
@@ -640,7 +643,9 @@ def test_topk_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="E <= 256"):
         k5.topk_gating(torch.zeros((4, 300), device=cuda), 2)
     with pytest.raises(ValueError, match="k <="):
-        k5.topk_gating(torch.zeros((4, 16), device=cuda), 9)
+        k5.topk_gating(torch.zeros((4, 16), device=cuda), 17)
+    with pytest.raises(ValueError, match="k <="):
+        k5.topk_gating(torch.zeros((4, 64), device=cuda), 33)
     with pytest.raises(ValueError, match="float32"):
         k5.topk_gating(torch.zeros((4, 16), device=cuda, dtype=torch.float64), 2)
 
@@ -720,22 +725,24 @@ def _decode_positions(b, s_max, split_len, seed, window=0):
     return [int(p) for p in (edges + rest.tolist())[:b]]
 
 
-def _decode_reference(q, caches, pos, theta, window):
+def _decode_reference(q, caches, pos, theta, window, rope=True, scale=None):
     """fp64 attention over the caches the plain version wrote, from the q it
-    ropes (rounded to q's dtype, as K6 rounds it)."""
+    ropes (rounded to q's dtype, as K6 rounds it), or from q as it is with
+    ``rope`` False, at softmax scale ``scale`` (None: d ** -0.5)."""
     from repro_torch.models.layers import apply_rope
 
     b, _, h, d = q.shape
     s_max, hkv = caches[0].shape[1], caches[0].shape[2]
     posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1).expand(b, 1).long()
-    qr = apply_rope(q, posb, theta).double()
+    qr = (apply_rope(q, posb, theta) if rope else q).double()
     k, v = caches[0].double(), caches[1].double()
     idx = torch.arange(s_max, device=q.device)[None, :]
     mask = idx <= posb
     if window:
         mask &= (posb - idx) < window
     rep = h // hkv
-    lg = torch.einsum("bkrd,bskd->bkrs", qr[:, 0].reshape(b, hkv, rep, d), k) * d ** -0.5
+    lg = (torch.einsum("bkrd,bskd->bkrs", qr[:, 0].reshape(b, hkv, rep, d), k)
+          * (d ** -0.5 if scale is None else scale))
     lg = torch.where(mask[:, None, None, :], lg, -torch.inf)
     o = torch.einsum("bkrs,bskd->bkrd", torch.softmax(lg, dim=-1), v)
     return o.reshape(b, 1, h, d)
@@ -902,6 +909,148 @@ def test_slot_server_through_k6_matches_the_plain_path(cuda, dtype, monkeypatch)
     assert k6.decode_attention.launches - before == n_attn * len(got)
     monkeypatch.setattr(k6, "decode_attention", decode_attention_plain)
     want = serve()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
+        else:
+            assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# granite-4.0-h-small: K3 and K6 without rope at the softmax scale 1/128,
+# and a reduced hybrid served through K3, K4, K5 (k = 10) and K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [2048, 8192])
+def test_flash_attention_at_the_hybrids_scale(cuda, s):
+    """K3 at granite's prefill shapes (32/8 heads of 128) and scale 1/128
+    against the plain version at that scale, at the file's bf16 tolerance
+    and within one bf16 rounding of the plain version in fp32; a scale of
+    None is d ** -0.5, bitwise."""
+    q, k, v = _qkv(cuda, 1, s, 32, 8, 128, torch.bfloat16, seed=s)
+    got = fa.flash_attention(q, k, v, causal=True, scale=1 / 128)
+    want = fa.flash_attention_plain(q, k, v, causal=True, scale=1 / 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    del want
+    want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                      scale=1 / 128)
+    torch.testing.assert_close(got.float(), want32, atol=1e-4, rtol=2 ** -8)
+    del want32
+    assert torch.equal(fa.flash_attention(q, k, v, causal=True),
+                       fa.flash_attention(q, k, v, causal=True, scale=128 ** -0.5))
+
+
+@pytest.mark.parametrize("per_slot", [True, False], ids=["per_slot", "int"])
+def test_decode_attention_without_rope_at_the_hybrids_scale(cuda, per_slot):
+    """K6 at granite's longdoc decode shape (16 rows of an 8224-position
+    cache, 32/8 heads of 128), no rope and scale 1/128, positions from
+    2048-8200 and at split edges: the caches bitwise the plain version's,
+    the output at the file's tolerance of it and within one bf16 rounding
+    of fp64 attention over q and k as they are."""
+    from repro_torch.kernels import decode_attention as k6
+
+    b, s_max, h, hkv, d = 16, 8224, 32, 8, 128
+    q, k_new, v_new, caches = _decode_case(cuda, b, s_max, h, hkv, d, torch.bfloat16, seed=29)
+    _, split_len = k6.schedule(s_max, b * hkv)
+    edges = [split_len - 1, split_len, 2048, 8200, s_max - 1]
+    positions = edges + np.random.default_rng(29).integers(2048, 8200, b - len(edges)).tolist()
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda) if per_slot else 5000
+    kw = dict(rope=False, scale=1 / 128)
+    kc, pc = [c.clone() for c in caches], [c.clone() for c in caches]
+    got = k6.decode_attention(q, k_new, v_new, *kc, pos, 10000.0, **kw)
+    want = decode_attention_plain(q, k_new, v_new, *pc, pos, 10000.0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    ref = _decode_reference(q, pc, pos, 10000.0, 0, **kw)
+    err = (got.double() - ref).abs()
+    assert (err <= 1e-4 + 2 ** -8 * ref.abs()).all(), err.max().item()
+
+
+def test_decode_attention_plans_keep_rope_and_scale_apart(cuda):
+    """Calls at one shape with rope on, then off, then at another scale each
+    get their own plan: each output is the plain version's at its settings,
+    and the three differ."""
+    from repro_torch.kernels import decode_attention as k6
+
+    q, k_new, v_new, caches = _decode_case(cuda, 4, 300, 32, 8, 128, torch.float32, seed=8)
+    pos = torch.tensor([0, 77, 150, 299], dtype=torch.int32, device=cuda)
+    outs = []
+    for kw in (dict(), dict(rope=False), dict(rope=False, scale=1 / 128)):
+        kc, pc = [c.clone() for c in caches], [c.clone() for c in caches]
+        got = k6.decode_attention(q, k_new, v_new, *kc, pos, 10000.0, **kw)
+        want = decode_attention_plain(q, k_new, v_new, *pc, pos, 10000.0, **kw)
+        assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1]) and not torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_slot_server_through_the_kernels(cuda, dtype, monkeypatch):
+    """A reduced granite-4.0-h (10 layers: Mamba-2 and one NoPE GQA layer at
+    scale 1/16, each followed by a top-10-of-16 MoE; the three multipliers)
+    served by a SlotServer (5 requests over 3 slots): K3 once per attention
+    layer of a prefill, K4 once per Mamba layer, K5 once per MoE layer of
+    every model call, K6 once per attention layer of a decode step; every
+    decode step's logits within tolerance of the same server on the CPU's
+    plain paths with the same weights (fp32, 5e-5), or in bf16 of the same
+    server with K6's plain version (2e-2 of max |logit|, as for
+    deepseek-moe-16b above: a bf16 token may flip between the CPU's and the
+    card's products, and the answers then part)."""
+    from repro_torch.configs.base import ArchConfig, LayerSpec
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import topk_gating as k5
+    from repro_torch.serve import SlotServer
+
+    pattern = tuple([LayerSpec("mamba", "moe")] * 5 + [LayerSpec("attn", "moe")]
+                    + [LayerSpec("mamba", "moe")] * 4)
+    cfg = ArchConfig(name="granite-tiny", family="hybrid", n_layers=10, d_model=64,
+                     vocab_size=256, n_heads=4, n_kv_heads=2, head_dim=16, n_experts=16,
+                     n_shared_experts=2, moe_top_k=10, moe_d_ff=32, ssm_state=16,
+                     ssm_head_dim=16, ssm_chunk=8, pattern=pattern, tie_embeddings=True,
+                     norm_eps=1e-5, rope=False, attn_scale=1 / 16, embedding_multiplier=12.0,
+                     residual_multiplier=0.22, logits_scaling=16.0)
+    flags = BuildFlags(dtype=dtype, attn_impl="flash", ssd_impl="cuda")
+    model = Model(cfg, flags, device=cuda, seed=0)
+    cpu = Model(cfg, flags, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 7, 30, 11)]
+
+    def serve(m):
+        logits = []
+        step = m.decode_step
+
+        def recording(tokens, caches, pos):
+            out, caches = step(tokens, caches, pos)
+            logits.append(out.float().cpu())
+            return out, caches
+
+        monkeypatch.setattr(m, "decode_step", recording)
+        srv = SlotServer(m, n_slots=3, max_len=64)
+        for i, p in enumerate(prompts):
+            srv.submit(i, p, 6)
+        srv.run()
+        monkeypatch.undo()
+        return logits
+
+    before = (fa.flash_attention.launches, k4.ssd_scan.launches, k5.topk_gating.launches,
+              k6.decode_attention.launches)
+    got = serve(model)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention.launches, k4.ssd_scan.launches, k5.topk_gating.launches,
+             k6.decode_attention.launches)
+    n = len(prompts)
+    assert [a - b for a, b in zip(after, before)] == [n, 9 * n, 10 * (n + len(got)),
+                                                     len(got)]
+    if dtype == "bfloat16":
+        monkeypatch.setattr(k6, "decode_attention", decode_attention_plain)
+        want = serve(model)
+    else:
+        want = serve(cpu)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         if dtype == "float32":
