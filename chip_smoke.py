@@ -58,7 +58,10 @@ failed check and then prints no result):
    fp32 copy on the plain chunked path at (4, 64) and (1, 600);
 6. main_moe: deepseek-moe-16b at full width and depth (28 layers) in bf16
    with flash attention and llama2-7b's traffic; K5's launches must equal 27
-   MoE layers times forward calls and K3's 28 times prefill calls; the same
+   MoE layers times the forward calls the host runs (every prefill and
+   Engine step, the SlotServer's first decode step and its capture: the
+   server's decode step is a CUDA graph, whose replays call no wrapper)
+   and K3's 28 times prefill calls; the same
    traffic is served again, untimed, with the router logits K5 receives
    recorded, and they are replayed through its plain version; the drift
    gate (root-mean-square) on a 4-layer full-width copy;
@@ -117,7 +120,8 @@ failed check and then prints no result):
    per-slot ones, bf16 and fp32), the caches it writes must equal the plain
    version's bitwise and its output lie within one rounding of fp64
    attention; on the main paths (4 and 6) K6's launches must equal the
-   attention layers times the decode calls.
+   attention layers times the decode calls the host runs (as K5's), with
+   one graph captured by the SlotServer.
 
 11. explore_main (the paper's DSE loop, ``launch.explore``): llama2-7b's
    generation workload at full width, ``--algorithm bayesopt --gp cuda``,
@@ -791,13 +795,16 @@ def phase_main_path(n_layers, seed):
     want = n_attn * calls["prefill"]
     emit("main_path", engine_seconds=gen_s, slot_server_seconds=slot_s, calls=calls,
          launches=launches, expected_flash_launches=want,
-         expected_decode_launches=n_attn * calls["decode"], max_memory_allocated=peak)
+         expected_decode_launches=n_attn * calls["decode_hosted"], max_memory_allocated=peak)
     if launches["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
                              f"times on the main path, expected {want}")
-    if launches["decode_attention"] != n_attn * calls["decode"]:
+    if calls["graph_captures"] != 1:
+        raise AssertionError(f"the SlotServer captured {calls['graph_captures']} decode graphs")
+    if launches["decode_attention"] != n_attn * calls["decode_hosted"]:
         raise AssertionError(f"decode_attention launched {launches['decode_attention']} "
-                             f"times on the main path, expected {n_attn * calls['decode']}")
+                             f"times on the main path, expected "
+                             f"{n_attn * calls['decode_hosted']}")
 
     # ---- outputs: over 32 bf16 layers both bf16 paths drift from fp32; the
     # flash path must not drift further than DRIFT_RATIO times as far
@@ -1142,7 +1149,11 @@ def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
     """Engine.generate on ENGINE_BATCH x ENGINE_PROMPT, then a SlotServer with
     2 slots over ``slot_prompts``: returns (tokens, Engine s, SlotServer s,
     finished requests, prefill and decode calls).  The callers reset the
-    kernels' counts just before and read them just after."""
+    kernels' counts just before and read them just after.  The SlotServer's
+    decode step is a CUDA graph: its first call runs eagerly and is
+    captured, the rest replay it, and a replay calls no kernel's wrapper;
+    ``calls["decode_hosted"]`` counts the decode calls that did (every
+    Engine step, the first SlotServer step and its capture)."""
     import numpy as np
     import torch
 
@@ -1168,11 +1179,15 @@ def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
     srv = SlotServer(model, n_slots=2, max_len=slot_max_len)
     for i, (p, n) in enumerate(zip(prompts, slot_new)):
         srv.submit(i, p, n)
+    graphs = model.decode_graph_captures, model.decode_graph_replays
     t0 = time.perf_counter()
     finished = srv.run()
     torch.cuda.synchronize()
     slot_s = time.perf_counter() - t0
     del model.prefill, model.decode_step            # back to the class's methods
+    calls["graph_captures"] = model.decode_graph_captures - graphs[0]
+    calls["graph_replays"] = model.decode_graph_replays - graphs[1]
+    calls["decode_hosted"] = calls["decode"] - calls["graph_replays"] + calls["graph_captures"]
     if res.tokens.shape != (ENGINE_BATCH, ENGINE_NEW) or not (
             (res.tokens >= 0).all() and (res.tokens < cfg.vocab_size).all()):
         raise AssertionError(f"{cfg.name}: Engine tokens wrong: shape {res.tokens.shape}")
@@ -1310,9 +1325,9 @@ def phase_moe_main(seed):
                 "decode_attention": k6.decode_attention.launches}
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
-    want = {"ssd_scan": 0, "topk_gating": n_moe * (calls["prefill"] + calls["decode"]),
+    want = {"ssd_scan": 0, "topk_gating": n_moe * (calls["prefill"] + calls["decode_hosted"]),
             "flash_attention": n_attn * calls["prefill"],
-            "decode_attention": n_attn * calls["decode"]}
+            "decode_attention": n_attn * calls["decode_hosted"]}
     emit("main_moe", arch=cfg.name, engine_seconds=gen_s, slot_server_seconds=slot_s,
          calls=calls, launches=launches, expected=want, max_memory_allocated=peak)
     if launches != want:

@@ -40,7 +40,11 @@ stream (``_PLANS``): the checks, the schedule, the inverse frequencies, the
 splits' fp32 scratch and zeroed tickets (reused launch after launch on that
 stream, so they are never reused under a launch still running), and a plan
 in the C library, so that a call passes the tensors' addresses and nothing
-else.
+else.  A launch captured in a CUDA graph (``Model.decode_step``) keeps the
+scratch and tickets of the stream it was captured on; the graph's
+replays, one after another on the caller's stream, reuse them as launches
+on one stream do.  The ``k6`` span and the ``launches`` counter fire at the
+capture, not on the replays.
 """
 from __future__ import annotations
 
@@ -194,4 +198,4 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0,
     return out
 
 
-decode_attention.launches = 0   # calls that launched the CUDA kernel in this process
+decode_attention.launches = 0   # calls that launched (or captured) the CUDA kernel in this process

@@ -30,7 +30,9 @@ softmax of the saved logits recomputed and g the gradient of ``top_p``,
 dL/dlogits = p ⊙ (scatter(g) − Σ_k g·top_p).  The ids carry no gradient.
 The counter counts forward launches only, so a training step under
 activation checkpointing counts K5 once for the forward and once for the
-recompute.
+recompute.  It counts the wrapper's calls: in a decode step captured as a
+CUDA graph (``Model.decode_step``) K5 counts, and its ``k5`` span fires,
+once at the capture and not on the graph's replays.
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ def _forward(logits, k):
     return top_p, top_ids
 
 
-topk_gating.launches = 0   # launches of the CUDA kernel in this process
+topk_gating.launches = 0   # calls that launched (or captured) the CUDA kernel in this process
 
 
 def topk_gating_backward(logits, top_p, top_ids, grad_p):

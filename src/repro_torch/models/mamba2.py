@@ -13,8 +13,9 @@ Decode is plain PyTorch in both modes, as in the reference.  A cache is
 ``{"state": (B, H, P, N) fp32, "conv": (B, K-1, d_inner + 2N)}``: prefill
 returns ``conv`` in the model's dtype, ``empty_mamba_cache`` makes it fp32,
 and decode follows JAX's type promotion between the two.  ``mamba_decode``
-writes the new state and conv window into the cache dict it is given and
-returns the same dict.
+writes the new state and conv window into the cache's own tensors, in
+place, and returns the same dict: a step captured in a CUDA graph
+(``models.model``) finds the cache where it left it.
 
 Under a sharding policy ``mamba_block_sharded`` and ``mamba_decode_sharded``
 run the same computation (``_mixer``, ``_decode_step``) on each rank's rows
@@ -141,8 +142,10 @@ def _decode_step(p: Mamba, z, dt_raw, new_seg, conv, state, cfg, dtype, x_lo=0,
                  model_sum=None):
     """One token through the conv window, the state and the gated norm on
     the heads whose weights ``p`` holds, whose x channels start at ``x_lo``
-    of the window.  Returns (the output before any sum over ranks, the new
-    state, the new window (B, K-1, C))."""
+    of the window.  The fp32 ``state`` is updated in place, as
+    ``state * decay + x·B·dt`` with the same two roundings.  Returns (the
+    output before any sum over ranks, the new window (B, K-1, C), a view of
+    a new tensor in the promoted dtype)."""
     bsz = z.shape[0]
     di, n, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     conv, new_seg = _promoted(conv, new_seg)
@@ -159,26 +162,29 @@ def _decode_step(p: Mamba, z, dt_raw, new_seg, conv, state, cfg, dtype, x_lo=0,
     dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)
     a = -torch.exp(p.A_log)
     decay = torch.exp(dt * a[None, :])                           # (B, h)
-    state = state * decay[:, :, None, None] + torch.einsum(
-        "bhp,bn,bh->bhpn", xs, b.float(), dt)
+    state.mul_(decay[:, :, None, None]).add_(torch.einsum("bhp,bn,bh->bhpn", xs, b.float(), dt))
     y = torch.einsum("bhpn,bn->bhp", state, c.float())
     y = y + xs * p.D[None, :, None]
     y = y.reshape(bsz, 1, -1).to(dtype)
     y = _gated_norm(y, z, p.gated_norm.scale, cfg, model_sum)
-    return y @ p.out_proj, state, torch.cat([conv[:, 1:], new_seg], dim=1)
+    return y @ p.out_proj, window[:, 1:]
 
 
 def mamba_decode(p: Mamba, x, cache, cfg):
     """One-token decode.  x: (B, 1, D); cache {state (B,H,P,N), conv (B,K-1,C)}.
 
     The conv window is the cache's ``conv`` followed by the new segment; JAX
-    promotes a bf16 segment against an fp32 cache to fp32, and so does this.
+    promotes a bf16 segment against an fp32 cache to fp32, and so does this
+    (the promoted type is the cache's own: prefill writes ``conv`` in the
+    model's dtype, ``empty_mamba_cache`` in fp32).  The state and the
+    window's last K-1 rows are written into the cache's tensors in place.
     """
     hh = rmsnorm(x, p.norm.scale, cfg.norm_eps)
     z, xs_raw, b_raw, c_raw, dt_raw = _projections(p, hh)
     new_seg = torch.cat([xs_raw, b_raw, c_raw], dim=-1)          # (B, 1, C)
-    out, cache["state"], cache["conv"] = _decode_step(
-        p, z, dt_raw, new_seg, cache["conv"], cache["state"], cfg, x.dtype)
+    out, window = _decode_step(p, z, dt_raw, new_seg, cache["conv"], cache["state"], cfg,
+                               x.dtype)
+    cache["conv"].copy_(window)
     return out, cache
 
 
@@ -270,9 +276,8 @@ def mamba_decode_sharded(policy, p: Mamba, x, cache, cfg):
     conv_dt, state_dt = cache["conv"], cache["state"]
     conv = policy.local_rows(conv_dt, split)
     ms = (lambda t: policy.model_all_reduce(t, x)) if heads > 1 else None
-    part, state, window = _decode_step(sh, z, dt_raw, new_seg, conv, state_dt.to_local(), cfg,
-                                       x.dtype, x_lo, ms)
-    state_dt.to_local().copy_(state)
+    part, window = _decode_step(sh, z, dt_raw, new_seg, conv, state_dt.to_local(), cfg,
+                                x.dtype, x_lo, ms)
     off, n = policy.share_of(conv_dt, 2)
     conv_dt.to_local().copy_(window[..., off:off + n])
     return policy.reduced_rows(part, split, heads, x, policy.residual_spec(tuple(x.shape))), cache

@@ -23,6 +23,11 @@ publishes them (granite-4.0-h): the token embeddings times
 prefill, decode and the training loss alike (and ``residual_multiplier`` in
 ``models.transformer``); at their default of 1 nothing is computed.
 
+A serving decode step on the card is one CUDA graph (``Model.decode_step``):
+where the call's inputs allow it, the first call at a batch shape and a set
+of caches runs eagerly and is then captured, and every later call copies
+its tokens and positions into the graph's input buffers and replays it.
+
 Frontends are stubs, as in the reference: a vision arch takes precomputed
 patch embeddings (``image_embeds``, (B, F, d)) that go through one (d, d)
 projection ``frontend.proj`` and are put ahead of the text embeddings; an
@@ -109,6 +114,10 @@ class Model(nn.Module):
         if cfg.frontend:
             self.frontend = Frontend(cfg.d_model, dtype, dev, gen)
         self.stack = transformer.Stack(cfg, dtype, dev, gen)
+        self._decode_graph = None        # the newest captured decode step (_DecodeGraph)
+        self._graph_stream = None        # the side stream it is captured on
+        self.decode_graph_captures = 0   # decode_step calls that captured a graph
+        self.decode_graph_replays = 0    # decode_step calls that replayed one
         self.policy = policy
         if policy is not None and policy.has_devices:
             policy.param_shardings(self)
@@ -231,14 +240,91 @@ class Model(nn.Module):
 
         The caches are updated in place and returned.  Under a policy the
         caches are ``ShardingPolicy.cache_shardings``'s DTensors.
+
+        On the card, with ``pos`` a (B,) tensor and neither the model nor
+        the caches DTensors (a ``SlotServer``'s step), the step is a CUDA
+        graph, chosen from the call's inputs alone (``_graph_key``).  The
+        first call at a key runs ``decode_step_eager`` on a side stream
+        and returns its result, then captures the step on that stream
+        (which runs nothing, so no side effect runs twice); every later
+        call at that key copies ``tokens`` and ``pos`` into the graph's
+        buffers and replays it.  The logits it returns are then the
+        graph's own buffer, which the next step at that key overwrites.
+        The model keeps only its newest graph.  Every other call runs
+        ``decode_step_eager``.  A replay fires no span or counter of the
+        layers and kernels it runs (``layer.*``, ``k5``, ``k6``, the
+        kernels' ``launches``): those fired at the capture.
         """
-        with trace.span("model.decode_step", tokens.shape[0]), maybe_context(self.policy):
+        with trace.span("model.decode_step", tokens.shape[0]):
+            key = self._graph_key(tokens, caches, pos)
+            if key is None:
+                return self.decode_step_eager(tokens, caches, pos)
+            graph = self._decode_graph
+            if graph is not None and graph.key == key:
+                self.decode_graph_replays += 1
+                trace.count("decode_graph.replays", 1)
+                return graph.replay(tokens, pos), caches
+            self.decode_graph_captures += 1
+            trace.count("decode_graph.captures", 1)
+            return self._capture(key, tokens, caches, pos), caches
+
+    def decode_step_eager(self, tokens, caches, pos):
+        """``decode_step`` with every kernel launched from the host, as it
+        runs where no graph is taken."""
+        logits = self._decode_logits(tokens, caches, pos)
+        if trace.enabled():
+            moe.count_routing()
+        return logits, caches
+
+    def _decode_logits(self, tokens, caches, pos):
+        with maybe_context(self.policy):
             x = self._token_embeds(tokens)
-            hidden, caches = self.stack.forward_decode(x, caches, pos, self.policy)
-            logits = self._logits(hidden)[:, 0]
-            if trace.enabled():
-                moe.count_routing()
-            return logits, caches
+            hidden, _ = self.stack.forward_decode(x, caches, pos, self.policy)
+            return self._logits(hidden)[:, 0]
+
+    def _graph_key(self, tokens, caches, pos):
+        """What a captured step is valid for, or None where the step runs
+        eagerly: off the card, an int position (``Engine``), DTensors."""
+        if (self.device.type != "cuda" or not torch.is_tensor(pos) or pos.dim() != 1
+                or not torch.is_tensor(tokens) or pos.shape[0] != tokens.shape[0]
+                or is_distributed(self.embed.table)):
+            return None
+        leaves = []
+        for cache in caches:
+            for t in cache.values():
+                if is_distributed(t):
+                    return None
+                leaves.append((t.data_ptr(), t.shape, t.dtype))
+        return tuple(tokens.shape), pos.dtype, trace.enabled(), tuple(leaves)
+
+    def _capture(self, key, tokens, caches, pos):
+        """The first call at ``key``: the step run eagerly on the graph's
+        side stream (which also makes K6's plans and cuBLAS's workspaces for
+        that stream outside any capture), then captured there reading
+        static copies of ``tokens`` and ``pos``.  Returns the eager logits."""
+        self._decode_graph = None                    # free the last graph's pool first
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        side, main = self._graph_stream, torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            logits, _ = self.decode_step_eager(tokens, caches, pos)
+            static_tokens, static_pos = tokens.clone(), pos.clone()
+            # not torch.cuda.graph's context, which also empties the allocator's
+            # cache: every prefill after it would allocate its blocks anew
+            torch.cuda.synchronize(self.device)
+            graph.capture_begin()
+            try:
+                static_logits = self._decode_logits(static_tokens, caches, static_pos)
+            finally:
+                graph.capture_end()
+        # while tracing, the graph also sums its MoE layers' drops on the device
+        routing = moe.take_routing()
+        main.wait_stream(side)
+        self._decode_graph = _DecodeGraph(key, graph, static_tokens, static_pos, static_logits,
+                                          routing)
+        return logits
 
     def reference_leaves(self):
         """[(parameter names, stacked?)] per leaf of the reference's param
@@ -260,6 +346,26 @@ class Model(nn.Module):
     def empty_caches(self, batch, seq_len):
         return transformer.empty_caches(self.cfg, batch, seq_len,
                                         self.flags.tdtype, self.device)
+
+
+class _DecodeGraph:
+    """A captured decode step: the graph, its input buffers and logits,
+    and the MoE routing counts it makes while tracing."""
+
+    def __init__(self, key, graph, tokens, pos, logits, routing):
+        self.key, self.graph = key, graph
+        self.tokens, self.pos, self.logits = tokens, pos, logits
+        self.assignments, self.dropped = routing
+
+    def replay(self, tokens, pos):
+        self.tokens.copy_(tokens)
+        self.pos.copy_(pos)
+        with trace.span("model.decode_replay"):
+            self.graph.replay()
+        if self.assignments:
+            trace.count("moe.assignments", self.assignments)
+            trace.count("moe.dropped", self.dropped.clone())   # the next replay rewrites it
+        return self.logits
 
 
 # ---------------------------------------------------------------------------

@@ -64,14 +64,22 @@ class MoE(nn.Module):
 _tally = [0, None]       # assignments and drops (a 0-dim device tensor) since the last sample
 
 
+def take_routing():
+    """(assignments, drops as a 0-dim device tensor or None), the sums over
+    the dispatches since the last take, and start the tally anew."""
+    out = tuple(_tally)
+    _tally[0], _tally[1] = 0, None
+    return out
+
+
 def count_routing():
     """Record ``moe.assignments`` and ``moe.dropped``, the sums over the
     dispatches since the last call (the model calls it once a step while
     tracing is on), and start the tally anew."""
-    if _tally[0]:
-        trace.count("moe.assignments", _tally[0])
-        trace.count("moe.dropped", _tally[1])
-    _tally[0], _tally[1] = 0, None
+    assignments, dropped = take_routing()
+    if assignments:
+        trace.count("moe.assignments", assignments)
+        trace.count("moe.dropped", dropped)
 
 
 def expert_capacity(n_tokens, cfg):

@@ -28,6 +28,8 @@ Spans (``arg`` in brackets) and what an operator reads them for:
   prompt token, and the kernels each prefill launched.
 - ``model.decode_step`` (batch rows): ``Model.decode_step``; the host's
   time to dispatch one decode step, and the device time it launched.
+- ``model.decode_replay``: inside ``model.decode_step``, the launch of its
+  captured CUDA graph; the device time of the whole step is put down to it.
 - ``layer.attn`` / ``layer.mamba`` (layer index): a layer's mixer, in
   prefill and decode; which share of a step's device time is attention.
 - ``layer.ffn`` (layer index): a layer's dense or MoE feed-forward.
@@ -35,6 +37,11 @@ Spans (``arg`` in brackets) and what an operator reads them for:
   K5, routing each row to k experts.
 - ``k6`` (rows): the host path of one call of the decode attention kernel
   K6 (its checks, two allocations and the ctypes call of its launches).
+
+A decode step replayed from a CUDA graph runs no Python of its layers: the
+``layer.*``, ``k5`` and ``k6`` spans of a graphed step fire in the
+``model.decode_step`` that captures it (twice: its eager run, then the
+capture), and not on its replays.
 
 Counters:
 
@@ -49,10 +56,20 @@ Counters:
   (``Model.prefill``, ``Model.decode_step``), the routed (token, expert)
   assignments of its MoE layers and those dropped over an expert's
   capacity; ``moe.dropped``'s value is a 0-dim device tensor, so that
-  counting makes no host sync (read it once the run is over).
+  counting makes no host sync (read it once the run is over).  A replayed
+  decode step records them too: a graph captured while tracing is on sums
+  its drops on the device, and each replay records a copy of that sum.
+- ``decode_graph.captures`` and ``decode_graph.replays``: value 1 at each
+  ``Model.decode_step`` that captured its CUDA graph (after running the
+  step eagerly) or replayed it; their sums over a window count the steps
+  that took each route, the rest ran eagerly.  ``Model`` counts the same
+  in its ``decode_graph_captures`` and ``decode_graph_replays``, with
+  tracing on or off.
 
 The kernels' launch counters (``kernels.*.launches``) are separate: they
-are always on, and tests read them to tell which route a call took.
+are always on, and tests read them to tell which route a call took.  They
+count calls of the wrappers, so a kernel in a graphed decode step counts
+once at its capture and not on its replays.
 """
 from __future__ import annotations
 

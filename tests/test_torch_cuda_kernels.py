@@ -36,7 +36,12 @@ the caches bitwise equal to the plain version's after both, the output at
 the tolerances above against the plain version and within one rounding to
 q's dtype of fp64 attention, bitwise equal across two launches, no host
 synchronisation; a reduced deepseek-moe-16b SlotServer's decode logits
-through K6 against the same server on K6's plain version.
+through K6 against the same server on K6's plain version.  The serving
+decode step as one CUDA graph (``Model.decode_step``): reduced
+deepseek-moe-16b, mamba2-780m and hybrid SlotServers give tokens and
+logits bitwise equal to ``decode_step_eager``'s, with one capture and
+every later step a replay; a second server captures anew; with tracing
+on, the MoE routing counters equal the eager path's step by step.
 """
 import numpy as np
 import pytest
@@ -875,9 +880,12 @@ def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_slot_server_through_k6_matches_the_plain_path(cuda, dtype, monkeypatch):
     """Reduced deepseek-moe-16b served by a SlotServer (5 requests over 3
-    slots): one K6 launch per attention layer of each decode step, and every
-    decode step's logits within tolerance of the same server on K6's plain
-    version (fp32 5e-5; bf16 2e-2 of max |logit|)."""
+    slots): one K6 call per attention layer of each decode step the host
+    runs (the first, eagerly, and its capture; the graph's replays call no
+    wrapper), and every decode step's logits within tolerance of the same
+    server on K6's plain version (fp32 5e-5; bf16 2e-2 of max |logit|).
+    The plain server runs ``decode_step_eager``, so that it takes no graph
+    and calls the plain version at every attention layer of every step."""
     from repro_torch.kernels import decode_attention as k6
     from repro_torch.serve import SlotServer
 
@@ -887,9 +895,9 @@ def test_slot_server_through_k6_matches_the_plain_path(cuda, dtype, monkeypatch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 19, 7, 30, 11)]
 
-    def serve():
+    def serve(step=None):
         logits = []
-        step = model.decode_step
+        step = step or model.decode_step
 
         def recording(tokens, caches, pos):
             out, caches = step(tokens, caches, pos)
@@ -904,17 +912,33 @@ def test_slot_server_through_k6_matches_the_plain_path(cuda, dtype, monkeypatch)
         monkeypatch.undo()
         return logits
 
-    before = k6.decode_attention.launches
+    before = k6.decode_attention.launches, _graph_counts(model)
     got = serve()
-    assert k6.decode_attention.launches - before == n_attn * len(got)
-    monkeypatch.setattr(k6, "decode_attention", decode_attention_plain)
-    want = serve()
+    captures, replays = (a - b for a, b in zip(_graph_counts(model), before[1]))
+    assert (captures, replays) == (1, len(got) - 1)
+    assert k6.decode_attention.launches - before[0] == n_attn * (len(got) - replays + captures)
+    plain = _counted(decode_attention_plain)
+    monkeypatch.setattr(k6, "decode_attention", plain)
+    graphs = _graph_counts(model)
+    want = serve(model.decode_step_eager)
+    assert _graph_counts(model) == graphs
+    assert plain.calls == n_attn * len(want)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         if dtype == "float32":
             torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
         else:
             assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
+def _counted(fn):
+    """``fn`` with a count of its calls in ``.calls``."""
+    def wrapper(*args, **kw):
+        wrapper.calls += 1
+        return fn(*args, **kw)
+
+    wrapper.calls = 0
+    return wrapper
 
 
 # ---------------------------------------------------------------------------
@@ -987,32 +1011,45 @@ def test_decode_attention_plans_keep_rope_and_scale_apart(cuda):
     assert not torch.equal(outs[0], outs[1]) and not torch.equal(outs[1], outs[2])
 
 
+def _granite_tiny():
+    """A reduced granite-4.0-h: 10 layers, Mamba-2 and one NoPE GQA layer
+    at scale 1/16, each followed by a top-10-of-16 MoE; the three multipliers."""
+    from repro_torch.configs.base import ArchConfig, LayerSpec
+
+    pattern = tuple([LayerSpec("mamba", "moe")] * 5 + [LayerSpec("attn", "moe")]
+                    + [LayerSpec("mamba", "moe")] * 4)
+    return ArchConfig(name="granite-tiny", family="hybrid", n_layers=10, d_model=64,
+                      vocab_size=256, n_heads=4, n_kv_heads=2, head_dim=16, n_experts=16,
+                      n_shared_experts=2, moe_top_k=10, moe_d_ff=32, ssm_state=16,
+                      ssm_head_dim=16, ssm_chunk=8, pattern=pattern, tie_embeddings=True,
+                      norm_eps=1e-5, rope=False, attn_scale=1 / 16, embedding_multiplier=12.0,
+                      residual_multiplier=0.22, logits_scaling=16.0)
+
+
+def _graph_counts(model):
+    return model.decode_graph_captures, model.decode_graph_replays
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_hybrid_slot_server_through_the_kernels(cuda, dtype, monkeypatch):
     """A reduced granite-4.0-h (10 layers: Mamba-2 and one NoPE GQA layer at
     scale 1/16, each followed by a top-10-of-16 MoE; the three multipliers)
     served by a SlotServer (5 requests over 3 slots): K3 once per attention
     layer of a prefill, K4 once per Mamba layer, K5 once per MoE layer of
-    every model call, K6 once per attention layer of a decode step; every
-    decode step's logits within tolerance of the same server on the CPU's
-    plain paths with the same weights (fp32, 5e-5), or in bf16 of the same
-    server with K6's plain version (2e-2 of max |logit|, as for
-    deepseek-moe-16b above: a bf16 token may flip between the CPU's and the
-    card's products, and the answers then part)."""
-    from repro_torch.configs.base import ArchConfig, LayerSpec
+    every model call the host runs, K6 once per attention layer of such a
+    decode step (the first step and its capture; the graph's replays call
+    no wrapper); every decode step's logits within tolerance of the same
+    server on the CPU's plain paths with the same weights (fp32, 5e-5), or
+    in bf16 of the same server with K6's plain version on
+    ``decode_step_eager``, which takes no graph (2e-2 of max |logit|, as
+    for deepseek-moe-16b above: a bf16 token may flip between the CPU's and
+    the card's products, and the answers then part)."""
     from repro_torch.kernels import decode_attention as k6
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import topk_gating as k5
     from repro_torch.serve import SlotServer
 
-    pattern = tuple([LayerSpec("mamba", "moe")] * 5 + [LayerSpec("attn", "moe")]
-                    + [LayerSpec("mamba", "moe")] * 4)
-    cfg = ArchConfig(name="granite-tiny", family="hybrid", n_layers=10, d_model=64,
-                     vocab_size=256, n_heads=4, n_kv_heads=2, head_dim=16, n_experts=16,
-                     n_shared_experts=2, moe_top_k=10, moe_d_ff=32, ssm_state=16,
-                     ssm_head_dim=16, ssm_chunk=8, pattern=pattern, tie_embeddings=True,
-                     norm_eps=1e-5, rope=False, attn_scale=1 / 16, embedding_multiplier=12.0,
-                     residual_multiplier=0.22, logits_scaling=16.0)
+    cfg = _granite_tiny()
     flags = BuildFlags(dtype=dtype, attn_impl="flash", ssd_impl="cuda")
     model = Model(cfg, flags, device=cuda, seed=0)
     cpu = Model(cfg, flags, device="cpu", seed=None)
@@ -1020,9 +1057,9 @@ def test_hybrid_slot_server_through_the_kernels(cuda, dtype, monkeypatch):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 7, 30, 11)]
 
-    def serve(m):
+    def serve(m, step=None):
         logits = []
-        step = m.decode_step
+        step = step or m.decode_step
 
         def recording(tokens, caches, pos):
             out, caches = step(tokens, caches, pos)
@@ -1038,17 +1075,24 @@ def test_hybrid_slot_server_through_the_kernels(cuda, dtype, monkeypatch):
         return logits
 
     before = (fa.flash_attention.launches, k4.ssd_scan.launches, k5.topk_gating.launches,
-              k6.decode_attention.launches)
+              k6.decode_attention.launches) + _graph_counts(model)
     got = serve(model)
     torch.cuda.synchronize()
     after = (fa.flash_attention.launches, k4.ssd_scan.launches, k5.topk_gating.launches,
-             k6.decode_attention.launches)
+             k6.decode_attention.launches) + _graph_counts(model)
     n = len(prompts)
-    assert [a - b for a, b in zip(after, before)] == [n, 9 * n, 10 * (n + len(got)),
-                                                     len(got)]
+    captures, replays = after[4] - before[4], after[5] - before[5]
+    assert (captures, replays) == (1, len(got) - 1)
+    hosted = len(got) - replays + captures          # decode calls that ran the wrappers
+    assert [a - b for a, b in zip(after[:4], before[:4])] == [n, 9 * n, 10 * (n + hosted),
+                                                             hosted]
     if dtype == "bfloat16":
-        monkeypatch.setattr(k6, "decode_attention", decode_attention_plain)
-        want = serve(model)
+        plain = _counted(decode_attention_plain)
+        monkeypatch.setattr(k6, "decode_attention", plain)
+        graphs = _graph_counts(model)
+        want = serve(model, model.decode_step_eager)
+        assert _graph_counts(model) == graphs
+        assert plain.calls == len(want)             # one attention layer
     else:
         want = serve(cpu)
     assert len(got) == len(want)
@@ -1057,3 +1101,130 @@ def test_hybrid_slot_server_through_the_kernels(cuda, dtype, monkeypatch):
             torch.testing.assert_close(g, w, atol=5e-5, rtol=5e-5)
         else:
             assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The serving decode step as one captured CUDA graph (Model.decode_step)
+# ---------------------------------------------------------------------------
+
+def _served_model(cuda, name, dtype="bfloat16"):
+    if name == "granite-tiny":
+        cfg = _granite_tiny()
+    else:
+        cfg = reduced(get_arch(name))
+    flags = BuildFlags(dtype=dtype, attn_impl="flash", ssd_impl="cuda")
+    return cfg, Model(cfg, flags, device=cuda, seed=0)
+
+
+def _serve_recorded(model, n_slots, prompts, new, step=None, max_len=64):
+    """A SlotServer over ``prompts`` with ``step`` (default the model's
+    ``decode_step``) as its decode: (each request's tokens, each decode
+    step's tokens and logits copied at once, the server)."""
+    from repro_torch.serve import SlotServer
+
+    step = step or model.decode_step
+    steps = []
+
+    def recording(tokens, caches, pos):
+        logits, caches = step(tokens, caches, pos)
+        steps.append((tokens.clone(), logits.clone()))
+        return logits, caches
+
+    srv = SlotServer(model, n_slots=n_slots, max_len=max_len)
+    for i, (p, n) in enumerate(zip(prompts, new)):
+        srv.submit(i, p, n)
+    model.decode_step = recording
+    try:
+        out = {r.rid: r.out for r in srv.run()}
+    finally:
+        del model.decode_step                       # back to the class's method
+    torch.cuda.synchronize()
+    return out, steps, srv
+
+
+def _traffic(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, m).astype(np.int32)
+               for m in rng.integers(3, 30, n)]
+    return prompts, rng.integers(12, 30, n).tolist()
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-780m", "granite-tiny"])
+def test_graphed_slot_server_equals_the_eager_path(cuda, name):
+    """A bf16 SlotServer (12 requests over 3 slots, admissions between
+    steps, at least 64 decode steps) on the captured decode step gives the
+    tokens and every step's logits bitwise equal to the same traffic on
+    ``decode_step_eager``; the first step runs eagerly and is captured (one
+    capture), every later one is a replay, and the eager server takes no
+    graph."""
+    cfg, model = _served_model(cuda, name)
+    prompts, new = _traffic(cfg, 12, seed=3)
+    got, got_steps, _ = _serve_recorded(model, 3, prompts, new)
+    assert _graph_counts(model) == (1, len(got_steps) - 1)
+    assert len(got_steps) >= 64
+    want, want_steps, _ = _serve_recorded(model, 3, prompts, new, step=model.decode_step_eager)
+    assert _graph_counts(model) == (1, len(got_steps) - 1)
+    assert got == want
+    assert len(got_steps) == len(want_steps)
+    for (gt, gl), (wt, wl) in zip(got_steps, want_steps):
+        assert torch.equal(gt, wt)
+        assert torch.equal(gl, wl), (gl.float() - wl.float()).abs().max().item()
+
+
+def test_a_second_slot_server_captures_anew(cuda):
+    """A second SlotServer on the same model (the first still alive, so its
+    caches lie elsewhere) captures its own graph, and the model lets the
+    first graph go; both servers' tokens equal the eager path's."""
+    import weakref
+
+    cfg, model = _served_model(cuda, "deepseek-moe-16b")
+    prompts, new = _traffic(cfg, 5, seed=5)
+    first, _, srv1 = _serve_recorded(model, 3, prompts, new)
+    old, old_key = weakref.ref(model._decode_graph), model._decode_graph.key
+    assert _graph_counts(model)[0] == 1
+    second, _, srv2 = _serve_recorded(model, 3, prompts, new)
+    assert _graph_counts(model)[0] == 2
+    assert old() is None and model._decode_graph.key != old_key
+    eager, _, _ = _serve_recorded(model, 3, prompts, new, step=model.decode_step_eager)
+    assert first == second == eager
+    del srv1, srv2
+
+
+def test_graphed_steps_count_the_eager_paths_routing(cuda):
+    """With tracing on, the captured decode step records ``moe.assignments``
+    and ``moe.dropped`` at every step, equal to the eager path's step by
+    step; one MoE layer's router is zeroed, so that every row picks the
+    same experts and a decode step over 12 slots drops assignments."""
+    from repro_torch import trace
+
+    cfg, model = _served_model(cuda, "deepseek-moe-16b")
+    moe_layer = next(layer for layer in model.stack.layers if layer.ffn_kind == "moe")
+    with torch.no_grad():
+        moe_layer.ffn.router.zero_()
+    prompts, new = _traffic(cfg, 16, seed=9)
+
+    def counted(step):
+        trace.drain()
+        trace.enable()
+        try:
+            out, _, _ = _serve_recorded(model, 12, prompts, new, step=step)
+        finally:
+            trace.disable()
+        spans, counters = trace.drain()
+        names = ("moe.assignments", "moe.dropped", "decode_graph.captures",
+                 "decode_graph.replays")
+        return out, [(n, int(v)) for n, _, v in counters if n in names], spans
+
+    got, got_counts, got_spans = counted(None)
+    want, want_counts, _ = counted(model.decode_step_eager)
+    assert got == want
+    routing = lambda counts: [c for c in counts if c[0].startswith("moe.")]
+    assert routing(got_counts) == routing(want_counts)
+    decode_steps = sum(1 for s in got_spans if s[0] == "model.decode_step")
+    replays = [c for c in got_counts if c[0] == "decode_graph.replays"]
+    assert [c for c in got_counts if c[0] == "decode_graph.captures"] == [
+        ("decode_graph.captures", 1)]
+    assert len(replays) == decode_steps - 1
+    assert sum(1 for s in got_spans if s[0] == "model.decode_replay") == decode_steps - 1
+    # the run ends on a decode step over 12 rows, 4 over capacity on each of 2 experts
+    assert routing(got_counts)[-1] == ("moe.dropped", 8)

@@ -125,3 +125,128 @@ def test_counters_of_routing_and_recurrent_state():
     assert values["moe.assignments"] == [4 * 30 * 10, 4 * 2 * 10]    # the prefill, a decode step
     dropped = [int(v) for v in values["moe.dropped"]]
     assert dropped[1] == 0 and 0 <= dropped[0] < 4 * 30 * 10
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 decode step writes its cache in place, and the decode step's
+# CUDA graph is taken only on the card
+# ---------------------------------------------------------------------------
+
+def _mamba_decode_out_of_place(p, x, conv, state, cfg):
+    """``mamba2.mamba_decode`` as it computed before it wrote its cache in
+    place: (out, a new state, a new window)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba2
+    from repro_torch.models.layers import rmsnorm
+
+    hh = rmsnorm(x, p.norm.scale, cfg.norm_eps)
+    z, xs_raw, b_raw, c_raw, dt_raw = mamba2._projections(p, hh)
+    new_seg = torch.cat([xs_raw, b_raw, c_raw], dim=-1)
+    bsz = z.shape[0]
+    di, n, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    conv, new_seg = mamba2._promoted(conv, new_seg)
+    window = torch.cat([conv, new_seg], dim=1)
+
+    def seg_conv(w, bias, lo, hi):
+        win, w, bias = mamba2._promoted(window[:, :, lo:hi], w, bias)
+        return F.silu(torch.einsum("bkc,ck->bc", win, w) + bias)
+
+    xs = seg_conv(p.conv_x, p.bias_x, 0, di)
+    b = seg_conv(p.conv_b, p.bias_b, di, di + n)
+    c = seg_conv(p.conv_c, p.bias_c, di + n, di + 2 * n)
+    xs = xs.reshape(bsz, -1, hp).float()
+    dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)
+    a = -torch.exp(p.A_log)
+    decay = torch.exp(dt * a[None, :])
+    state = state * decay[:, :, None, None] + torch.einsum("bhp,bn,bh->bhpn", xs, b.float(), dt)
+    y = torch.einsum("bhpn,bn->bhp", state, c.float())
+    y = y + xs * p.D[None, :, None]
+    y = y.reshape(bsz, 1, -1).to(x.dtype)
+    y = mamba2._gated_norm(y, z, p.gated_norm.scale, cfg)
+    return y @ p.out_proj, state, torch.cat([conv[:, 1:], new_seg], dim=1)
+
+
+@pytest.mark.parametrize("dtype,conv_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                              ("bfloat16", "float32")],
+                         ids=["fp32", "bf16_engine", "bf16_slot_server"])
+@pytest.mark.parametrize("arch", ["mamba2", "granite"])
+def test_mamba_decode_writes_its_cache_in_place(arch, dtype, conv_dtype):
+    """``mamba_decode`` leaves the cache's state and conv window in their own
+    storage (the addresses a captured decode step reads), and its output,
+    state and window are bitwise what the out-of-place step computed, at the
+    reduced mamba2-780m's and the granite-style hybrid's Mamba-2 shapes, for
+    a model in fp32 and in bf16 against prefill's bf16 window (Engine) and
+    the shared fp32 one (SlotServer)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import mamba2
+
+    cfg = reduced(get_arch("mamba2-780m")) if arch == "mamba2" else HYBRID
+    tdtype = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    p = mamba2.Mamba(cfg, tdtype, "cpu", g)
+    with torch.no_grad():
+        p.A_log.copy_(torch.rand(p.A_log.shape, generator=g))
+        p.dt_bias.copy_(torch.randn(p.dt_bias.shape, generator=g))
+        p.D.copy_(torch.randn(p.D.shape, generator=g))
+    b = 3
+    x = torch.randn((b, 1, cfg.d_model), generator=g).to(tdtype)
+    empty = mamba2.empty_mamba_cache(cfg, b, "cpu")
+    state = torch.randn(empty["state"].shape, generator=g)
+    conv = torch.randn(empty["conv"].shape, generator=g).to(getattr(torch, conv_dtype))
+    with torch.no_grad():
+        want, want_state, want_conv = _mamba_decode_out_of_place(p, x, conv, state, cfg)
+        cache = {"state": state.clone(), "conv": conv.clone()}
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        got, out_cache = mamba2.mamba_decode(p, x, cache, cfg)
+    assert out_cache is cache
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    assert cache["conv"].dtype == want_conv.dtype
+    assert torch.equal(got, want)
+    assert torch.equal(cache["state"], want_state)
+    assert torch.equal(cache["conv"], want_conv)
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "int_position", "dtensor_cache"])
+def test_decode_step_stays_eager_off_the_graphs_path(case, monkeypatch):
+    """A model on the CPU or on ``meta``, an int position (``Engine``) and a
+    DTensor cache take the eager decode step: ``_graph_key`` refuses each,
+    the last two also where the model reads as on the card (where the same
+    call with a (B,) position tensor and plain caches would be captured),
+    and no graph is captured or replayed."""
+    dev = "meta" if case == "meta" else "cpu"
+    model = Model(HYBRID, BuildFlags(dtype="float32"), device=dev,
+                  seed=None if case == "meta" else 0)
+    caches = model.empty_caches(2, 16)
+    tokens = torch.zeros((2, 1), dtype=torch.long, device=dev)
+    per_slot = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    pos = 3 if case == "int_position" else per_slot
+    if case in ("int_position", "dtensor_cache"):
+        with monkeypatch.context() as m:
+            m.setattr(Model, "device", property(lambda self: torch.device("cuda")))
+            assert model._graph_key(tokens, caches, per_slot) is not None
+    if case == "dtensor_cache":
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cpu", [0])
+            caches[0]["state"] = DTensor.from_local(caches[0]["state"], mesh, [Replicate()])
+            with monkeypatch.context() as m:
+                m.setattr(Model, "device", property(lambda self: torch.device("cuda")))
+                assert model._graph_key(tokens, caches, pos) is None
+        finally:
+            dist.destroy_process_group()
+    else:
+        with monkeypatch.context() as m:
+            if case == "int_position":
+                m.setattr(Model, "device", property(lambda self: torch.device("cuda")))
+            assert model._graph_key(tokens, caches, pos) is None
+        with torch.no_grad():
+            logits, out = model.decode_step(tokens, caches, pos)
+        assert logits.shape == (2, HYBRID.vocab_size) and out is caches
+    assert model.decode_graph_captures == model.decode_graph_replays == 0
+    assert model._decode_graph is None
