@@ -58,12 +58,13 @@ failed check and then prints no result):
    fp32 copy on the plain chunked path at (4, 64) and (1, 600);
 6. main_moe: deepseek-moe-16b at full width and depth (28 layers) in bf16
    with flash attention and llama2-7b's traffic; K5's launches must equal 27
-   MoE layers times the forward calls the host runs (every prefill and
-   Engine step, the SlotServer's first decode step and its capture: the
-   server's decode step is a CUDA graph, whose replays call no wrapper)
+   MoE layers times the forward calls the host runs (every prefill, and
+   the Engine's and the SlotServer's first decode steps and their captures:
+   each one's decode step is a CUDA graph, whose replays call no wrapper)
    and K3's 28 times prefill calls; the same
-   traffic is served again, untimed, with the router logits K5 receives
-   recorded, and they are replayed through its plain version; the drift
+   traffic is served again, untimed, on ``decode_step_eager`` (no graph),
+   with the router logits K5 receives at every step recorded, and they are
+   replayed through its plain version; the drift
    gate (root-mean-square) on a 4-layer full-width copy;
 7. gp_parity: K1a, K1b and K2 against their plain versions in float64 on
    real GP states (cap 64, 1024 and 8192; n = 0, on a 16-row edge, one
@@ -116,12 +117,13 @@ failed check and then prints no result):
    beside its bound (the bytes of the positions attended and the new rows),
    the plain version and SDPA over the same cache; before that, at those
    shapes and at the main paths' own (``phase_decode_checks``: llama2-7b's
-   and deepseek-moe-16b's heads, Engine's int position and SlotServer's
-   per-slot ones, bf16 and fp32), the caches it writes must equal the plain
-   version's bitwise and its output lie within one rounding of fp64
-   attention; on the main paths (4 and 6) K6's launches must equal the
-   attention layers times the decode calls the host runs (as K5's), with
-   one graph captured by the SlotServer.
+   and deepseek-moe-16b's heads, Engine's positions, equal in every row,
+   and SlotServer's per-slot ones, bf16 and fp32), the caches it writes
+   must equal the plain version's bitwise and its output lie within one
+   rounding of fp64 attention; on the main paths (4 and 6) K6's launches
+   must equal the attention layers times the decode calls the host runs
+   (as K5's), with one graph captured by the Engine and one by the
+   SlotServer.
 
 11. explore_main (the paper's DSE loop, ``launch.explore``): llama2-7b's
    generation workload at full width, ``--algorithm bayesopt --gp cuda``,
@@ -343,6 +345,21 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def engine_steps(model, tok, caches, prompt):
+    """A call of it is the next of ``Engine.generate``'s decode steps on
+    ``caches`` (filled to ``prompt``): the step at a (B,) position tensor,
+    then the positions advanced in place, so that the first call is
+    captured and the later ones replay the graph."""
+    import torch
+
+    pos = torch.full((tok.shape[0],), prompt, dtype=torch.int32, device=tok.device)
+
+    def step():
+        model.decode_step(tok, caches, pos)
+        pos.add_(1)
+    return step
 
 
 def single_ms(fn, reps=10):
@@ -799,8 +816,9 @@ def phase_main_path(n_layers, seed):
     if launches["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
                              f"times on the main path, expected {want}")
-    if calls["graph_captures"] != 1:
-        raise AssertionError(f"the SlotServer captured {calls['graph_captures']} decode graphs")
+    if calls["graph_captures"] != [1, 1]:
+        raise AssertionError(f"the Engine and the SlotServer captured "
+                             f"{calls['graph_captures']} decode graphs, not one each")
     if launches["decode_attention"] != n_attn * calls["decode_hosted"]:
         raise AssertionError(f"decode_attention launched {launches['decode_attention']} "
                              f"times on the main path, expected "
@@ -1149,11 +1167,13 @@ def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
     """Engine.generate on ENGINE_BATCH x ENGINE_PROMPT, then a SlotServer with
     2 slots over ``slot_prompts``: returns (tokens, Engine s, SlotServer s,
     finished requests, prefill and decode calls).  The callers reset the
-    kernels' counts just before and read them just after.  The SlotServer's
-    decode step is a CUDA graph: its first call runs eagerly and is
-    captured, the rest replay it, and a replay calls no kernel's wrapper;
-    ``calls["decode_hosted"]`` counts the decode calls that did (every
-    Engine step, the first SlotServer step and its capture)."""
+    kernels' counts just before and read them just after.  The Engine's and
+    the SlotServer's decode steps are CUDA graphs: the first call of each
+    runs eagerly and is captured, the rest replay it, and a replay calls no
+    kernel's wrapper; ``calls["graph_captures"]`` and ``["graph_replays"]``
+    hold the Engine's and the SlotServer's counts, and
+    ``calls["decode_hosted"]`` counts the decode calls that ran the
+    wrappers (each one's first step and its capture)."""
     import numpy as np
     import torch
 
@@ -1172,6 +1192,7 @@ def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
             return _inner(*args, **kwargs)
         setattr(model, {"prefill": "prefill", "decode": "decode_step"}[name], counted)
     engine = Engine(model, max_len=ENGINE_PROMPT + ENGINE_NEW + 1)
+    graphs = [(model.decode_graph_captures, model.decode_graph_replays)]
     t0 = time.perf_counter()
     res = engine.generate({"tokens": tokens}, ENGINE_NEW)
     torch.cuda.synchronize()
@@ -1179,15 +1200,17 @@ def serve_path(model, slot_prompts, slot_new, slot_max_len, seed):
     srv = SlotServer(model, n_slots=2, max_len=slot_max_len)
     for i, (p, n) in enumerate(zip(prompts, slot_new)):
         srv.submit(i, p, n)
-    graphs = model.decode_graph_captures, model.decode_graph_replays
+    graphs.append((model.decode_graph_captures, model.decode_graph_replays))
     t0 = time.perf_counter()
     finished = srv.run()
     torch.cuda.synchronize()
     slot_s = time.perf_counter() - t0
     del model.prefill, model.decode_step            # back to the class's methods
-    calls["graph_captures"] = model.decode_graph_captures - graphs[0]
-    calls["graph_replays"] = model.decode_graph_replays - graphs[1]
-    calls["decode_hosted"] = calls["decode"] - calls["graph_replays"] + calls["graph_captures"]
+    graphs.append((model.decode_graph_captures, model.decode_graph_replays))
+    calls["graph_captures"], calls["graph_replays"] = (
+        [b[i] - a[i] for a, b in zip(graphs, graphs[1:])] for i in (0, 1))
+    calls["decode_hosted"] = (calls["decode"] - sum(calls["graph_replays"])
+                              + sum(calls["graph_captures"]))
     if res.tokens.shape != (ENGINE_BATCH, ENGINE_NEW) or not (
             (res.tokens >= 0).all() and (res.tokens < cfg.vocab_size).all()):
         raise AssertionError(f"{cfg.name}: Engine tokens wrong: shape {res.tokens.shape}")
@@ -1210,11 +1233,11 @@ def serve_times(model, tokens, label, gen_s, slot_s, slot_new, peak):
         _, caches = model.prefill({"tokens": tokens})
         caches = pad_caches(caches, prompt, prompt + n_gen + 1)
         tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
-        steps = iter(range(prompt, prompt + n_gen))
-        decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
-                            iters=n_gen - 4, warmup=2)
+        decode_ms = cuda_ms(engine_steps(model, tok, caches, prompt), iters=n_gen - 4,
+                            warmup=2)
         prof_prefill = profile(lambda: model.prefill({"tokens": tokens}))
-        prof_decode = profile(lambda: model.decode_step(tok, caches, prompt + 1))
+        pos = torch.full((batch,), prompt + 1, dtype=torch.int32, device="cuda")
+        prof_decode = profile(lambda: model.decode_step(tok, caches, pos))
     emit("profile", path=label, step="prefill", batch=batch, prompt=prompt,
          device_busy_share=prof_prefill["device_busy_ms"] / prefill_ms, **prof_prefill)
     emit("profile", path=label, step="decode", batch=batch,
@@ -1334,7 +1357,9 @@ def phase_moe_main(seed):
         raise AssertionError(f"moe path launches {launches}, expected {want}")
 
     # ---- the same traffic again, untimed, with K5's inputs and outputs
-    # recorded for the replay below (the copies would slow the timed run)
+    # recorded for the replay below (the copies would slow the timed run);
+    # its decode steps run eagerly, so that K5 sees every step's router
+    # logits and not only those of the calls that ran before a replay
     seen = []
     real = moe_mod.topk_gating
 
@@ -1343,11 +1368,16 @@ def phase_moe_main(seed):
         seen.append((logits.clone(), out[0].clone(), out[1].clone()))
         return out
     moe_mod.topk_gating = recording
-    _, _, rec_gen_s, rec_slot_s, _ = serve_path(model, SLOT_PROMPTS, slot_new, 128, seed)
+    model.decode_step = model.decode_step_eager     # serve_path's clean-up deletes it
+    _, _, rec_gen_s, rec_slot_s, rec_calls = serve_path(model, SLOT_PROMPTS, slot_new, 128,
+                                                        seed)
     moe_mod.topk_gating = real
-    if len(seen) != want["topk_gating"]:
+    rec_want = n_moe * (rec_calls["prefill"] + rec_calls["decode"])
+    if rec_calls["graph_captures"] != [0, 0] or rec_calls["graph_replays"] != [0, 0]:
+        raise AssertionError(f"the recorded run took a decode graph: {rec_calls}")
+    if len(seen) != rec_want:
         raise AssertionError(f"the recorded run called K5 {len(seen)} times, "
-                             f"expected {want['topk_gating']}")
+                             f"expected {rec_want}")
 
     # ---- replay K5's recorded inputs through its plain version: ids equal
     # except where two neighbouring ranks' probabilities are within one ulp
@@ -1710,10 +1740,10 @@ def phase_decode_checks():
     """K6 at the main paths' own decode shapes, checked and not timed:
     llama2-7b's and deepseek-moe-16b's heads, in bf16 (``phase_main_path``,
     ``phase_moe_main``) and fp32 (``launch.serve``'s fp32), Engine's aligned
-    decode at every position it decodes (one int, B = ENGINE_BATCH, S_max =
-    ENGINE_PROMPT + ENGINE_NEW + 1) and SlotServer's per-slot positions (2
-    slots of 128, pairs over the cache and its edges), each by
-    ``check_decode``."""
+    decode at every position it decodes (a (B,) tensor of equal positions,
+    B = ENGINE_BATCH, S_max = ENGINE_PROMPT + ENGINE_NEW + 1) and
+    SlotServer's per-slot positions (2 slots of 128, pairs over the cache
+    and its edges), each by ``check_decode``."""
     import numpy as np
     import torch
 
@@ -1730,7 +1760,8 @@ def phase_decode_checks():
             errs, shares = [], []
             for p in range(ENGINE_PROMPT, ENGINE_PROMPT + ENGINE_NEW - 1):
                 case = decode_case(ENGINE_BATCH, engine_len, h, hkv, d, dt, seed=p)
-                errs.append(check_decode(case, p, cfg.rope_theta)[3:])
+                pos = torch.full((ENGINE_BATCH,), p, dtype=torch.int32, device="cuda")
+                errs.append(check_decode(case, pos, cfg.rope_theta)[3:])
             for i, pair in enumerate(slot_pos):
                 case = decode_case(2, 128, h, hkv, d, dt, seed=1000 + i)
                 pos = torch.tensor(pair, dtype=torch.int32, device="cuda")
@@ -2141,9 +2172,8 @@ def phase_serve_fp32(seed):
             _, caches = model.prefill({"tokens": tokens})
             caches = pad_caches(caches, 64, 64 + ENGINE_NEW + 1)
             tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
-            steps = iter(range(64, 64 + ENGINE_NEW))
-            decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
-                                iters=ENGINE_NEW - 4, warmup=2)
+            decode_ms = cuda_ms(engine_steps(model, tok, caches, 64), iters=ENGINE_NEW - 4,
+                                warmup=2)
         del caches
         ok = (launches == want and all(e[1] for e in kernel_errs.values())
               and len(kernel_errs) == sum(n > 0 for n in want.values()) and gap["finite"]
@@ -2198,7 +2228,8 @@ def frontend_generate(model, batch):
     """Greedy generation of ENGINE_NEW tokens: ``Engine.generate`` for a
     vision batch; for an audio batch, which the Engine refuses (it has no
     tokens), the prefill and ENGINE_NEW - 1 ``decode_step``s on the argmax
-    tokens, the same loop by hand.  Returns (tokens, prompt length)."""
+    tokens at a (B,) position tensor, the same loop by hand.  Returns
+    (tokens, prompt length)."""
     import numpy as np
     import torch
 
@@ -2213,10 +2244,12 @@ def frontend_generate(model, batch):
         caches = pad_caches(caches, FRONTEND_PROMPT, FRONTEND_PROMPT + ENGINE_NEW + 1)
         tok = torch.argmax(logits, dim=-1)[:, None]
         toks = [tok[:, 0]]
-        for pos in range(FRONTEND_PROMPT, FRONTEND_PROMPT + ENGINE_NEW - 1):
+        pos = torch.full((tok.shape[0],), FRONTEND_PROMPT, dtype=torch.int32, device="cuda")
+        for _ in range(ENGINE_NEW - 1):
             logits, caches = model.decode_step(tok, caches, pos)
             tok = torch.argmax(logits, dim=-1)[:, None]
             toks.append(tok[:, 0])
+            pos.add_(1)
     return torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(), FRONTEND_PROMPT
 
 
@@ -2282,8 +2315,7 @@ def phase_frontends_main(seed):
             _, caches = model.prefill(batch)
             caches = pad_caches(caches, prompt, prompt + ENGINE_NEW + 1)
             tok = torch.zeros((ENGINE_BATCH, 1), dtype=torch.long, device="cuda")
-            steps = iter(range(prompt, prompt + ENGINE_NEW))
-            decode_ms = cuda_ms(lambda: model.decode_step(tok, caches, next(steps)),
+            decode_ms = cuda_ms(engine_steps(model, tok, caches, prompt),
                                 iters=ENGINE_NEW - 4, warmup=2)
             del caches
         emit("serve", path="frontends_main", arch=name, batch=ENGINE_BATCH, prompt=prompt,

@@ -9,11 +9,11 @@
 // (79 % of a deepseek-moe-16b chat step's device time), and its rope, mask
 // and write took some 70 host dispatches a layer.
 //
-// It computes, for each row b with position p = pos[b] (or one pos for the
-// batch): rope on q and the new k in fp32 as models.layers.apply_rope does
-// (angles p * inv, inv the plain rope_freqs passed in; x1 c - x2 s and
-// x2 c + x1 s, each product and sum rounded as PyTorch's separate ops round
-// them; rounded to the model's dtype), or no rope where the plan has no
+// It computes, for each row b with position p = pos[b]: rope on q and the
+// new k in fp32 as models.layers.apply_rope does (angles p * inv, inv the
+// plain rope_freqs passed in; x1 c - x2 s and x2 c + x1 s, each product and
+// sum rounded as PyTorch's separate ops round them; rounded to the model's
+// dtype), or no rope where the plan has no
 // frequencies (NoPE attention), the new k and v rows written into the
 // cache at p, then attention of the rep query heads of each kv head over
 // positions max(0, p - window + 1) .. p (window 0: 0 .. p) at the plan's
@@ -154,7 +154,7 @@ template <typename T, int D, int RMAX>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                     const T* __restrict__ v_new, T* __restrict__ cache_k,
-                    T* __restrict__ cache_v, const int* __restrict__ pos_arr, int pos_int,
+                    T* __restrict__ cache_v, const int* __restrict__ pos,
                     const float* __restrict__ inv, T* __restrict__ out,
                     float* __restrict__ part, unsigned int* __restrict__ tickets, int S,
                     int Hkv, int rep, int window, float scale, int split_len) {
@@ -164,7 +164,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
 
   T* ob = out + ((size_t)b * Hkv + kvh) * rep * D;  // this kv head's rep output rows
-  const int p_hi = pos_arr ? pos_arr[b] : pos_int;
+  const int p_hi = pos[b];
   if (p_hi < 0 || p_hi >= S) {
     if (split == 0)
       for (int i = tid; i < rep * D; i += NT) ob[i] = Elem<T>::cast(0.f);
@@ -442,11 +442,11 @@ struct Plan {
 };
 
 typedef int (*LaunchFn)(const Plan&, const void*, const void*, const void*, void*, void*,
-                        const int*, int, void*, cudaStream_t);
+                        const int*, void*, cudaStream_t);
 
 template <typename T, int D, int RMAX>
 int launch(const Plan& p, const void* q, const void* k_new, const void* v_new, void* cache_k,
-           void* cache_v, const int* pos, int pos_int, void* out, cudaStream_t stream) {
+           void* cache_v, const int* pos, void* out, cudaStream_t stream) {
   using Sh = Shape<T, D>;
   static bool attr_set[MAX_DEVICES];  // the smem opt-in at RMAX heads, once per device
   if (!attr_set[p.device]) {
@@ -458,7 +458,7 @@ int launch(const Plan& p, const void* q, const void* k_new, const void* v_new, v
   }
   decode_split_kernel<T, D, RMAX><<<dim3(p.splits, p.Hkv, p.B), NT, Sh::smem(p.rep), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(cache_k), static_cast<T*>(cache_v), pos, pos_int, p.inv,
+      static_cast<T*>(cache_k), static_cast<T*>(cache_v), pos, p.inv,
       static_cast<T*>(out), p.part, p.tickets, p.S, p.Hkv, p.rep, p.window, p.scale,
       p.split_len);
   return (int)cudaGetLastError();
@@ -526,12 +526,11 @@ int decode_attention_plan(int dtype, int B, int S, int Hkv, int rep, int D, int 
 
 // One launch of plan `plan` on `stream`: q (B, H, D), k_new, v_new (B, Hkv,
 // D), the caches (B, S, Hkv, D), out (B, H, D); pos a (B,) int32 device
-// array, or null for the one position pos_int.  Makes the plan's device
+// array.  Makes the plan's device
 // current for the launch when it is not.  Returns a cudaError_t: the result
 // of cudaGetLastError() right after the launch (0 when it was accepted).
 int decode_attention_run(int plan, const void* q, const void* k_new, const void* v_new,
-                         void* cache_k, void* cache_v, const void* pos, int pos_int, void* out,
-                         void* stream) {
+                         void* cache_k, void* cache_v, const void* pos, void* out, void* stream) {
   if (plan < 0 || plan >= n_plans) return (int)cudaErrorInvalidValue;
   const Plan& p = plans[plan];
   int cur = 0;
@@ -539,7 +538,7 @@ int decode_attention_run(int plan, const void* q, const void* k_new, const void*
   if (err) return err;
   if (cur != p.device && (err = (int)cudaSetDevice(p.device))) return err;
   err = plan_fns[plan](p, q, k_new, v_new, cache_k, cache_v, static_cast<const int*>(pos),
-                       pos_int, out, static_cast<cudaStream_t>(stream));
+                       out, static_cast<cudaStream_t>(stream));
   if (cur != p.device) cudaSetDevice(cur);
   return err;
 }

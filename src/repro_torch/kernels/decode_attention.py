@@ -79,8 +79,7 @@ def _lib() -> ctypes.CDLL:
         lib.decode_attention_plan.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float]
                                               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         lib.decode_attention_plan.restype = ctypes.c_int
-        lib.decode_attention_run.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                                             + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        lib.decode_attention_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8
         lib.decode_attention_run.restype = ctypes.c_int
         lib.decode_attention_smem.argtypes = [ctypes.c_int] * 3
         lib.decode_attention_smem.restype = ctypes.c_int
@@ -150,19 +149,22 @@ def _plan(q, k_new, v_new, cache_k, cache_v, theta, window, rope, scale):
 def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0, rope=True,
                      scale=None):
     """One-token decode: q (B, 1, H, d), the new token's k, v (B, 1, Hkv, d)
-    before rope, the caches (B, S_max, Hkv, d) written in place at ``pos``
-    (an int, or a (B,) tensor of per-row positions) -> o (B, 1, H, d) in q's
-    dtype, attended over max(0, p − window + 1) … p (``window`` 0: 0 … p)
-    at softmax scale ``scale`` (None: d ** -0.5); ``rope=False`` ropes
-    neither q nor k.
+    before rope, the caches (B, S_max, Hkv, d) written in place at ``pos``,
+    a (B,) tensor of per-row positions (made int32 on q's device where it is
+    not) -> o (B, 1, H, d) in q's dtype, attended over
+    max(0, p − window + 1) … p (``window`` 0: 0 … p) at softmax scale
+    ``scale`` (None: d ** -0.5); ``rope=False`` ropes neither q nor k.
 
-    Launches the CUDA kernel or raises; the model takes the plain version
-    for tensors elsewhere.  A row whose position lies outside [0, S_max) is
-    no error here: it writes nothing and gets zeros, where the plain
-    version's index write fails.
+    Launches the CUDA kernel or raises (an int position too); the model
+    takes the plain version for tensors elsewhere and turns an int into a
+    (B,) tensor here.  A row
+    whose position lies outside [0, S_max) is no error here: it writes
+    nothing and gets zeros, where the plain version's index write fails.
     """
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda, not {q.device}")
+    if not torch.is_tensor(pos):
+        raise ValueError(f"decode_attention takes a (B,) tensor of positions, not {pos!r}")
     with trace.span("k6", q.shape[0]):
         idx = q.get_device()
         stream = build.current_stream(idx)
@@ -180,17 +182,13 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, theta, *, window=0,
         kp, vp = cache_k.data_ptr(), cache_v.data_ptr()
         if kp % 16 or vp % 16:
             raise ValueError("decode_attention wants the caches on 16-byte boundaries")
-        if torch.is_tensor(pos):
-            if pos.dtype != torch.int32 or pos.get_device() != idx:
-                pos = pos.to(device=q.device, dtype=torch.int32)
-            if pos.shape != (q.shape[0],) or not pos.is_contiguous():
-                pos = pos.reshape(-1).expand(q.shape[0]).contiguous()
-            pos_ptr, pos_int = pos.data_ptr(), 0
-        else:
-            pos_ptr, pos_int = None, int(pos)
+        if pos.dtype != torch.int32 or pos.get_device() != idx:
+            pos = pos.to(device=q.device, dtype=torch.int32)
+        if pos.shape != (q.shape[0],) or not pos.is_contiguous():
+            pos = pos.reshape(-1).expand(q.shape[0]).contiguous()
         out = torch.empty_like(q)
         err = plan[1](plan[0], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kp, vp,
-                      pos_ptr, pos_int, out.data_ptr(), stream)
+                      pos.data_ptr(), out.data_ptr(), stream)
         if err:
             msg = _lib().decode_attention_error_string(err).decode()
             raise RuntimeError(f"decode_attention launch failed: cudaError {err} ({msg})")

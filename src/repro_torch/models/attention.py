@@ -4,9 +4,9 @@ Port of ``repro/models/attention.py``.  The full-sequence path runs either
 the plain grouped computation (``impl="xla"``, the path the JAX package
 leaves to XLA) or the flash-attention kernel K3 (``impl="flash"``,
 ``kernels.flash_attention``).  Decode attention on the card is the kernel K6
-in both modes (``kernels.decode_attention``: the rope, the cache write and
-the attention in place on the cache); elsewhere, and for a sharded cache,
-it is ``decode_attention_plain``, the reference's plain computation.
+(``kernels.decode_attention``: the rope, the cache write and the attention
+in place on the cache); elsewhere, and for a sharded cache, it is
+``decode_attention_plain``, the reference's plain computation.
 
 Weights keep the reference layouts: ``wq`` (d, H, dh), ``wk``/``wv``
 (d, Hkv, dh), ``wo`` (H, dh, d).  A cache is ``{"k", "v"}`` of shape
@@ -171,19 +171,21 @@ def _kv_for_heads(q, h_local, hkv, k, v):
 def decode_attention(p: Attention, x, cache, pos, cfg, *, window=0):
     """One-token decode against a (B, S_max, Hkv, dh) cache, updated in place.
 
-    x: (B, 1, D); pos: an int (aligned batch decode) or a (B,) tensor of
-    per-row positions (continuous batching: each row writes and attends at
-    its own causal frontier).  Returns (out (B, 1, D), cache).  A CUDA
-    tensor goes through K6; a CPU or ``meta`` tensor (the explore loop's
-    count) and a sharded cache through ``decode_attention_plain``.
+    x: (B, 1, D); pos: a (B,) tensor of per-row positions, or one int for
+    every row (the form a sequence-sharded cache takes).  Returns (out (B, 1,
+    D), cache).  A CUDA tensor goes through K6, which takes positions only
+    as a (B,) tensor, so an int becomes one; a CPU or ``meta`` tensor (the
+    explore loop's count) and a sharded cache go through
+    ``decode_attention_plain``.
     """
     q, k_new, v_new = _project(p, x, cfg)
-    args = (q, k_new, v_new, cache["k"], cache["v"], pos, cfg.rope_theta)
-    kw = dict(window=window, rope=cfg.rope, scale=cfg.softmax_scale)
+    attend = decode_attention_plain
     if x.device.type == "cuda" and not (is_distributed(cache["k"]) or is_distributed(x)):
-        o = k6.decode_attention(*args, **kw)
-    else:
-        o = decode_attention_plain(*args, **kw)
+        attend = k6.decode_attention
+        if not torch.is_tensor(pos):
+            pos = torch.full((x.shape[0],), pos, dtype=torch.int32, device=x.device)
+    o = attend(q, k_new, v_new, cache["k"], cache["v"], pos, cfg.rope_theta,
+               window=window, rope=cfg.rope, scale=cfg.softmax_scale)
     return _out(p, o), cache
 
 

@@ -236,19 +236,20 @@ class Model(nn.Module):
         return logits, caches
 
     def decode_step(self, tokens, caches, pos):
-        """tokens: (B, 1); pos: int or (B,) tensor.  Returns (logits (B, V), caches).
+        """tokens: (B, 1); pos: a (B,) tensor, or an int (a sharded cache's
+        form, run eagerly).  Returns (logits (B, V), caches).
 
         The caches are updated in place and returned.  Under a policy the
         caches are ``ShardingPolicy.cache_shardings``'s DTensors.
 
         On the card, with ``pos`` a (B,) tensor and neither the model nor
-        the caches DTensors (a ``SlotServer``'s step), the step is a CUDA
-        graph, chosen from the call's inputs alone (``_graph_key``).  The
-        first call at a key runs ``decode_step_eager`` on a side stream
-        and returns its result, then captures the step on that stream
-        (which runs nothing, so no side effect runs twice); every later
-        call at that key copies ``tokens`` and ``pos`` into the graph's
-        buffers and replays it.  The logits it returns are then the
+        the caches DTensors (the steps of ``Engine`` and ``SlotServer``),
+        the step is a CUDA graph, chosen from the call's inputs alone
+        (``_graph_key``).  The first call at a key runs
+        ``decode_step_eager`` on a side stream and returns its result, then
+        captures the step on that stream (which runs nothing, so no side
+        effect runs twice); every later call at that key copies ``tokens``
+        and ``pos`` into the graph's buffers and replays it.  The logits it returns are then the
         graph's own buffer, which the next step at that key overwrites.
         The model keeps only its newest graph.  Every other call runs
         ``decode_step_eager``.  A replay fires no span or counter of the
@@ -262,10 +263,8 @@ class Model(nn.Module):
             graph = self._decode_graph
             if graph is not None and graph.key == key:
                 self.decode_graph_replays += 1
-                trace.count("decode_graph.replays", 1)
                 return graph.replay(tokens, pos), caches
             self.decode_graph_captures += 1
-            trace.count("decode_graph.captures", 1)
             return self._capture(key, tokens, caches, pos), caches
 
     def decode_step_eager(self, tokens, caches, pos):
@@ -284,7 +283,7 @@ class Model(nn.Module):
 
     def _graph_key(self, tokens, caches, pos):
         """What a captured step is valid for, or None where the step runs
-        eagerly: off the card, an int position (``Engine``), DTensors."""
+        eagerly: off the card, an int position, DTensors."""
         if (self.device.type != "cuda" or not torch.is_tensor(pos) or pos.dim() != 1
                 or not torch.is_tensor(tokens) or pos.shape[0] != tokens.shape[0]
                 or is_distributed(self.embed.table)):

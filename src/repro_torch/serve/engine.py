@@ -3,7 +3,8 @@
 Greedy sampling matches the paper's experiments ("we used greedy sampling for
 token generation so that all inferences generate the same output"), so the
 generation workloads explored by JExplore are deterministic.  The JAX
-engine's on-device ``lax.scan`` decode loop is a Python loop here.
+engine's on-device ``lax.scan`` decode loop is a Python loop here, over a
+(B,) position tensor advanced in place: on the card, a CUDA graph's replays.
 
 A vision batch carries ``image_embeds`` beside its ``tokens``, and the
 prompt counts the image tokens.  An audio batch has frame embeddings and no
@@ -58,11 +59,13 @@ class Engine:
         logits, caches = self.model.prefill(batch)
         caches = pad_caches(caches, prompt_len, self.max_len)
         tok = torch.argmax(logits, dim=-1)[:, None]
+        pos = torch.full((tok.shape[0],), prompt_len, dtype=torch.int32, device=self.model.device)
         toks = []
-        for pos in range(prompt_len, prompt_len + n_tokens - 1):
+        for _ in range(n_tokens - 1):
             toks.append(tok[:, 0])
             logits, caches = self.model.decode_step(tok, caches, pos)
             tok = torch.argmax(logits, dim=-1)[:, None]
+            pos.add_(1)
         toks.append(tok[:, 0])
         out = torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()
         return GenerationResult(tokens=np.asarray(out), n_prompt=prompt_len,

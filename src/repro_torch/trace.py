@@ -59,17 +59,13 @@ Counters:
   counting makes no host sync (read it once the run is over).  A replayed
   decode step records them too: a graph captured while tracing is on sums
   its drops on the device, and each replay records a copy of that sum.
-- ``decode_graph.captures`` and ``decode_graph.replays``: value 1 at each
-  ``Model.decode_step`` that captured its CUDA graph (after running the
-  step eagerly) or replayed it; their sums over a window count the steps
-  that took each route, the rest ran eagerly.  ``Model`` counts the same
-  in its ``decode_graph_captures`` and ``decode_graph_replays``, with
-  tracing on or off.
 
-The kernels' launch counters (``kernels.*.launches``) are separate: they
-are always on, and tests read them to tell which route a call took.  They
-count calls of the wrappers, so a kernel in a graphed decode step counts
-once at its capture and not on its replays.
+The kernels' launch counters (``kernels.*.launches``) and ``Model``'s
+``decode_graph_captures`` and ``decode_graph_replays`` (the decode steps
+that captured a CUDA graph and that replayed one) are separate: they are
+always on, and tests read them to tell which route a call took.  The
+kernels' count calls of the wrappers, so a kernel in a graphed decode step
+counts once at its capture and not on its replays.
 """
 from __future__ import annotations
 

@@ -31,8 +31,9 @@ bitwise equal; K2 also at the row counts where its row splits are
 cut.  K5 also runs on a side stream after a slow producer there, and the
 raw stream accessor the wrappers use must give PyTorch's current stream.
 K6 (decode attention on the cache): at the served shapes and the other
-models' head counts, windows and dtypes, with per-slot and int positions,
-the caches bitwise equal to the plain version's after both, the output at
+models' head counts, windows and dtypes, at per-slot positions (an int
+position is refused; the model's decode step turns one into a (B,) tensor
+for K6), the caches bitwise equal to the plain version's after both, the output at
 the tolerances above against the plain version and within one rounding to
 q's dtype of fp64 attention, bitwise equal across two launches, no host
 synchronisation; a reduced deepseek-moe-16b SlotServer's decode logits
@@ -40,8 +41,10 @@ through K6 against the same server on K6's plain version.  The serving
 decode step as one CUDA graph (``Model.decode_step``): reduced
 deepseek-moe-16b, mamba2-780m and hybrid SlotServers give tokens and
 logits bitwise equal to ``decode_step_eager``'s, with one capture and
-every later step a replay; a second server captures anew; with tracing
-on, the MoE routing counters equal the eager path's step by step.
+every later step a replay; a second server captures anew; ``Engine``
+captures once per ``generate`` and gives the eager path's tokens; with
+tracing on, the MoE routing counters equal the eager path's step by
+step.
 """
 import numpy as np
 import pytest
@@ -766,8 +769,7 @@ def _decode_reference(q, caches, pos, theta, window, rope=True, scale=None):
     (5, 200, 4, 2, 16, 70, torch.bfloat16),
 ], ids=["chat", "longdoc", "gqa4-bf16", "gqa4-fp32", "window1024", "gqa16", "d64-fp32",
         "d64-gqa8", "d16-fp32", "d16-bf16"])
-@pytest.mark.parametrize("per_slot", [True, False], ids=["per_slot", "int"])
-def test_decode_attention_matches_plain(cuda, b, s_max, h, hkv, d, window, dtype, per_slot):
+def test_decode_attention_matches_plain(cuda, b, s_max, h, hkv, d, window, dtype):
     """K6 against its plain version on the card: the caches bitwise equal
     after both (the new rows written alike, every other byte untouched), the
     output within the file's tolerance of the plain version's, and within
@@ -778,7 +780,7 @@ def test_decode_attention_matches_plain(cuda, b, s_max, h, hkv, d, window, dtype
     q, k_new, v_new, caches = _decode_case(cuda, b, s_max, h, hkv, d, dtype, seed=b + d)
     _, split_len = k6.schedule(s_max, b * hkv)
     positions = _decode_positions(b, s_max, split_len, seed=d, window=window)
-    pos = torch.tensor(positions, dtype=torch.int32, device=cuda) if per_slot else positions[3]
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
     theta = 10000.0
     kc = [c.clone() for c in caches]
     pc = [c.clone() for c in caches]
@@ -828,20 +830,21 @@ def test_decode_attention_rows_outside_the_cache(cuda):
 
 
 def test_decode_attention_makes_no_host_sync(cuda):
-    """Neither a per-slot (B,) int32 position tensor nor an int position
-    makes the wrapper read from the device or synchronise."""
+    """Neither a per-slot (B,) int32 position tensor nor an int64 one, which
+    the wrapper casts, makes it read from the device or synchronise."""
     from repro_torch.kernels import decode_attention as k6
 
     q, k_new, v_new, caches = _decode_case(cuda, 8, 512, 32, 8, 128, torch.bfloat16, seed=4)
     pos = torch.arange(100, 108, dtype=torch.int32, device=cuda)
+    pos64 = torch.full((8,), 200, dtype=torch.long, device=cuda)
     k6.decode_attention(q, k_new, v_new, *caches, pos, 1e4)      # builds, plans, frequencies
-    k6.decode_attention(q, k_new, v_new, *caches, 200, 1e4)
+    k6.decode_attention(q, k_new, v_new, *caches, pos64, 1e4)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(3):
             k6.decode_attention(q, k_new, v_new, *caches, pos, 1e4)
-            k6.decode_attention(q, k_new, v_new, *caches, 200, 1e4)
+            k6.decode_attention(q, k_new, v_new, *caches, pos64, 1e4)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -852,11 +855,14 @@ def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
 
     def call(b=2, s=64, h=4, hkv=2, d=64, dtype=torch.float32, window=0, **edit):
         q, k_new, v_new, caches = _decode_case(cuda, b, s, h, hkv, d, dtype)
-        args = dict(q=q, k_new=k_new, v_new=v_new, cache_k=caches[0], cache_v=caches[1])
+        args = dict(q=q, k_new=k_new, v_new=v_new, cache_k=caches[0], cache_v=caches[1],
+                    pos=torch.full((b,), 5, dtype=torch.int32, device=cuda))
         args.update({k: f(args[k]) for k, f in edit.items()})
         return k6.decode_attention(args["q"], args["k_new"], args["v_new"], args["cache_k"],
-                                   args["cache_v"], 5, 1e4, window=window)
+                                   args["cache_v"], args["pos"], 1e4, window=window)
 
+    with pytest.raises(ValueError, match="tensor of positions"):
+        call(pos=lambda t: 5)
     with pytest.raises(ValueError, match="head dim"):
         call(d=48)
     with pytest.raises(ValueError, match="GQA ratio"):
@@ -965,8 +971,7 @@ def test_flash_attention_at_the_hybrids_scale(cuda, s):
                        fa.flash_attention(q, k, v, causal=True, scale=128 ** -0.5))
 
 
-@pytest.mark.parametrize("per_slot", [True, False], ids=["per_slot", "int"])
-def test_decode_attention_without_rope_at_the_hybrids_scale(cuda, per_slot):
+def test_decode_attention_without_rope_at_the_hybrids_scale(cuda):
     """K6 at granite's longdoc decode shape (16 rows of an 8224-position
     cache, 32/8 heads of 128), no rope and scale 1/128, positions from
     2048-8200 and at split edges: the caches bitwise the plain version's,
@@ -979,7 +984,7 @@ def test_decode_attention_without_rope_at_the_hybrids_scale(cuda, per_slot):
     _, split_len = k6.schedule(s_max, b * hkv)
     edges = [split_len - 1, split_len, 2048, 8200, s_max - 1]
     positions = edges + np.random.default_rng(29).integers(2048, 8200, b - len(edges)).tolist()
-    pos = torch.tensor(positions, dtype=torch.int32, device=cuda) if per_slot else 5000
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
     kw = dict(rope=False, scale=1 / 128)
     kc, pc = [c.clone() for c in caches], [c.clone() for c in caches]
     got = k6.decode_attention(q, k_new, v_new, *kc, pos, 10000.0, **kw)
@@ -1190,11 +1195,87 @@ def test_a_second_slot_server_captures_anew(cuda):
     del srv1, srv2
 
 
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-780m"])
+def test_graphed_engine_equals_the_eager_path(cuda, name):
+    """``Engine.generate`` (bf16, 4 prompts of 23 tokens, 20 new) passes a
+    (B,) int32 position tensor on the model's device: the first call
+    captures one graph at its first decode step and replays it at the
+    other 18; the second captures anew, or, where its new caches land at
+    the first's freed addresses (part of the graph's key), replays the
+    first's graph at all 19.  Both calls' tokens are bitwise those of the
+    same engine on ``decode_step_eager``, which takes no graph."""
+    from repro_torch.serve import Engine
+
+    cfg, model = _served_model(cuda, name)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 23)).astype(np.int32)}
+    engine = Engine(model, max_len=48)
+    positions = []
+
+    def recording(tokens, caches, pos):
+        positions.append((pos.dtype, pos.device, tuple(pos.shape)))
+        return Model.decode_step(model, tokens, caches, pos)
+
+    got, counts = [], []
+    model.decode_step = recording
+    try:
+        for _ in range(2):
+            before = _graph_counts(model)
+            got.append(engine.generate(batch, 20).tokens)
+            counts.append(tuple(a - b for a, b in zip(_graph_counts(model), before)))
+    finally:
+        del model.decode_step                       # back to the class's method
+    assert set(positions) == {(torch.int32, model.device, (4,))} and len(positions) == 38
+    assert counts[0] == (1, 18) and counts[1] in ((1, 18), (0, 19))
+    graphs = _graph_counts(model)
+    model.decode_step = model.decode_step_eager
+    try:
+        want = engine.generate(batch, 20).tokens
+    finally:
+        del model.decode_step
+    assert _graph_counts(model) == graphs
+    assert np.array_equal(got[0], want) and np.array_equal(got[1], want)
+
+
+def test_an_int_position_on_the_card_goes_through_k6(cuda):
+    """``Model.decode_step`` at an int position (bf16 reduced
+    deepseek-moe-16b, 3 prompts of 9 tokens) runs eagerly on the card and
+    its attention takes K6 at a (B,) tensor of that position, never the
+    plain version: one launch per attention layer, and the logits and
+    caches bitwise those of ``decode_step_eager`` at that tensor."""
+    from repro_torch.kernels import decode_attention as k6
+    from repro_torch.models import attention
+    from repro_torch.serve.engine import pad_caches
+
+    cfg, model = _served_model(cuda, "deepseek-moe-16b")
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (3, 9)).astype(np.int32)
+    with torch.no_grad():
+        logits, caches = model.prefill({"tokens": toks})
+        caches = pad_caches(caches, 9, 16)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        copies = [[{n: c.clone() for n, c in layer.items()} for layer in caches]
+                  for _ in range(2)]
+        plain = _counted(attention.decode_attention_plain)
+        before, graphs = k6.decode_attention.launches, _graph_counts(model)
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(attention, "decode_attention_plain", plain)
+            got, _ = model.decode_step(tok, copies[0], 9)
+        assert k6.decode_attention.launches == before + n_attn and plain.calls == 0
+        assert _graph_counts(model) == graphs
+        want, _ = model.decode_step_eager(
+            tok, copies[1], torch.full((3,), 9, dtype=torch.int32, device=cuda))
+    assert torch.equal(got, want)
+    for a, b in zip(*copies):
+        assert all(torch.equal(a[n], b[n]) for n in a)
+
+
 def test_graphed_steps_count_the_eager_paths_routing(cuda):
     """With tracing on, the captured decode step records ``moe.assignments``
     and ``moe.dropped`` at every step, equal to the eager path's step by
-    step; one MoE layer's router is zeroed, so that every row picks the
-    same experts and a decode step over 12 slots drops assignments."""
+    step, with one capture and a replay at every later step; one MoE
+    layer's router is zeroed, so that every row picks the same experts and
+    a decode step over 12 slots drops assignments."""
     from repro_torch import trace
 
     cfg, model = _served_model(cuda, "deepseek-moe-16b")
@@ -1206,25 +1287,22 @@ def test_graphed_steps_count_the_eager_paths_routing(cuda):
     def counted(step):
         trace.drain()
         trace.enable()
+        graphs = _graph_counts(model)
         try:
             out, _, _ = _serve_recorded(model, 12, prompts, new, step=step)
         finally:
             trace.disable()
         spans, counters = trace.drain()
-        names = ("moe.assignments", "moe.dropped", "decode_graph.captures",
-                 "decode_graph.replays")
-        return out, [(n, int(v)) for n, _, v in counters if n in names], spans
+        names = ("moe.assignments", "moe.dropped")
+        return (out, [(n, int(v)) for n, _, v in counters if n in names], spans,
+                tuple(a - b for a, b in zip(_graph_counts(model), graphs)))
 
-    got, got_counts, got_spans = counted(None)
-    want, want_counts, _ = counted(model.decode_step_eager)
+    got, got_counts, got_spans, got_graphs = counted(None)
+    want, want_counts, _, want_graphs = counted(model.decode_step_eager)
     assert got == want
-    routing = lambda counts: [c for c in counts if c[0].startswith("moe.")]
-    assert routing(got_counts) == routing(want_counts)
+    assert got_counts == want_counts
     decode_steps = sum(1 for s in got_spans if s[0] == "model.decode_step")
-    replays = [c for c in got_counts if c[0] == "decode_graph.replays"]
-    assert [c for c in got_counts if c[0] == "decode_graph.captures"] == [
-        ("decode_graph.captures", 1)]
-    assert len(replays) == decode_steps - 1
+    assert got_graphs == (1, decode_steps - 1) and want_graphs == (0, 0)
     assert sum(1 for s in got_spans if s[0] == "model.decode_replay") == decode_steps - 1
     # the run ends on a decode step over 12 rows, 4 over capacity on each of 2 experts
-    assert routing(got_counts)[-1] == ("moe.dropped", 8)
+    assert got_counts[-1] == ("moe.dropped", 8)

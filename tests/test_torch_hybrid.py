@@ -209,8 +209,8 @@ def test_mamba_decode_writes_its_cache_in_place(arch, dtype, conv_dtype):
 
 @pytest.mark.parametrize("case", ["cpu", "meta", "int_position", "dtensor_cache"])
 def test_decode_step_stays_eager_off_the_graphs_path(case, monkeypatch):
-    """A model on the CPU or on ``meta``, an int position (``Engine``) and a
-    DTensor cache take the eager decode step: ``_graph_key`` refuses each,
+    """A model on the CPU or on ``meta``, an int position (a sharded cache's
+    form) and a DTensor cache take the eager decode step: ``_graph_key`` refuses each,
     the last two also where the model reads as on the card (where the same
     call with a (B,) position tensor and plain caches would be captured),
     and no graph is captured or replayed."""

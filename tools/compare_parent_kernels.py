@@ -14,7 +14,7 @@ the same seeded inputs:
 * K6 (bf16, rope on, d ** -0.5) at dsmoe16b's chat and longdoc decode
   shapes with per-slot positions: the output and both caches;
 * a reduced deepseek-moe-16b (bf16, K3 and K5) served whole: its prefill
-  logits and three decode steps' logits.
+  logits and three decode steps' logits, at a (B,) position tensor.
 
 Every tensor must be bitwise equal between the two.  Prints one JSON line
 a case and the card's name and power limit; exits 1 if any differs.
@@ -80,9 +80,10 @@ def outputs() -> dict:
             for key in c:
                 f[key][:, :c[key].shape[1]] = c[key]
         nxt = logits.argmax(-1, keepdim=True)
+        pos = torch.full((2,), 300, dtype=torch.int32, device="cuda")
         for i in range(3):
-            logits, full = model.decode_step(nxt, full, 300 + i)
-            out[f"model_decode{i}"] = logits
+            logits, full = model.decode_step(nxt, full, pos + i)
+            out[f"model_decode{i}"] = logits.clone()    # the graph's buffer, rewritten next step
             nxt = logits.argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
